@@ -24,6 +24,9 @@ def pytest_configure(config):
         "slow: long-running test (heavyweight arch smoke, deep property "
         "sweeps, traffic-driven benchmark goldens, the XLA dry-run); "
         "skipped by default — run with `--runslow` / `make test`")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
