@@ -18,6 +18,24 @@ Phases, one JSON line each:
               calls, L2 flushed before each), each kernel's bound from
               this run's inputs, and the median ``serve_batch`` wall time
               with the kernels and with the plain versions.
+6. flash_decode -- the decode-attention kernel against its plain version:
+              f32, bf16 and the serving path's f32 query over a bf16
+              cache, at the shapes of ``tests/test_kernels.py``, the
+              smollm-135m shape, a ragged S, and kv_len 0, 1, S and > S.
+7. lm_main -- the LM serving path (``repro_torch.serve_lm``) at the full
+              ``smollm-135m`` width: 8 sequences decoded for 256 positions
+              of a 1,024-position cache. (a) f32 cache on the card against
+              the same run on the CPU, logits within 1e-4; (b) the serving
+              bf16 cache: the kernel within 2e-2 of its plain version at
+              each of the path's 7,680 calls, on that call's inputs, and
+              the logits' gap to a ``use_kernels=False`` run and their
+              top-1 agreement reported. Each card run with the kernel
+              launches ``flash_decode`` 30 x 256 times; the counters are
+              zeroed just before (b)'s first run and read just after.
+8. lm_timing -- ``flash_decode`` kernel, plain and SDPA times with their
+              byte bounds at the path's shape and one ``decode_32k`` layer,
+              and the median ``decode_step`` wall per token with the kernel
+              and with the plain version, with the profiler's device time.
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -42,6 +60,10 @@ FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 GATHER_POOL_TOL = dict(rtol=1e-5, atol=1e-4)   # as tests/test_kernels.py
 CACHE_PROBE_TOL = dict(rtol=0.0, atol=1e-6)
 SERVE_TOL = 1e-5
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
+FLASH_DECODE_TOL = {"f32": 1e-5, "bf16": 2e-2, "path": 2e-2}  # tests/test_kernels.py:124
+LM_CARD_VS_CPU_TOL = 1e-4
+LM_BATCH, LM_TOKENS, LM_MAX_LEN = 8, 256, 1024
 
 
 def emit(obj) -> None:
@@ -55,9 +77,9 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, nops: float):
+def bound_ms(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -71,12 +93,12 @@ class Timer:
         self.flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
         torch.cuda.synchronize()
 
-    def ms(self, fn) -> dict:
+    def ms(self, fn, reps: int = 0) -> dict:
         torch = self.torch
         for _ in range(self.warmup):
             fn()
         samples = []
-        for _ in range(self.reps):
+        for _ in range(reps or self.reps):
             self.flush.sum()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -144,22 +166,20 @@ def cache_probe_cases(torch, np, rng):
     return [main, case("w32", 64, 32, 96, 500), tuple(two)]
 
 
-def profile_serve(torch, engine, batches):
-    """Per batch of ``serve_batch`` under ``torch.profiler``: the device's
-    busy time (one stream, so the sum of its kernels, copies and fills), the
-    number of device operations and the heaviest ones by name."""
+def device_profile(torch, run, nb: int):
+    """Per step of ``run`` (which runs ``nb`` steps) under ``torch.profiler``:
+    the device's busy time (one stream, so the sum of its kernels, copies and
+    fills), the number of device operations and the heaviest ones by name."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for tb in batches:
-            engine.serve_batch(tb["user"], bg_iops=10_000.0)
+        run()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    nb = len(batches)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return {"device_busy_us": sum(us for _, us in by_name.values()) / nb,
             "device_ops": sum(n for n, _ in by_name.values()) / nb,
@@ -180,6 +200,248 @@ def cache_probe_bytes_ops(tt, data, qt, hit_slots, sets):
     n_sets = int(sets.unique().numel())        # each distinct tag line once
     nbytes = N * 12 + n_sets * 2 * W * 4 + hit_slots * D * 4 + N * (D * 4 + 4)
     return nbytes, N * W * 2
+
+
+def flash_decode_cases(torch, np, rng):
+    """(label, dtype label, q, k, v, kv_len) on the card. Rows 0-3 of a case
+    with four or more rows take kv_len 0, 1, S and S + 5."""
+    shapes = [("mha", 1, 4, 4, 32, 512), ("gqa4", 2, 8, 2, 64, 1024),
+              ("mqa", 2, 16, 1, 128, 512), ("smollm", 8, 9, 3, 64, 1024),
+              ("ragged", 4, 9, 3, 64, 1000), ("ragged_hd16", 5, 6, 2, 16, 77)]
+    dtypes = [("f32", torch.float32, torch.float32),
+              ("bf16", torch.bfloat16, torch.bfloat16),
+              ("path", torch.float32, torch.bfloat16)]   # f32 q over a bf16 cache
+    cases = []
+    for label, B, H, K, hd, S in shapes:
+        kv_len = rng.integers(1, S + 1, B)
+        if B >= 4:
+            kv_len[:4] = [0, 1, S, S + 5]
+        for dlabel, qdt, kvdt in dtypes:
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                       .to("cuda", dt) for shape, dt in (((B, H, hd), qdt),
+                                                         ((B, S, K, hd), kvdt),
+                                                         ((B, S, K, hd), kvdt)))
+            cases.append((f"{label}_{dlabel}", dlabel, q, k, v,
+                          torch.from_numpy(kv_len.astype(np.int32)).cuda()))
+    return cases
+
+
+def flash_decode_bytes_ops(q, k, kv_len):
+    """Bytes and operations this call needs: each row's keys and values up
+    to min(kv_len, S) read once (all S when kv_len <= 0, as the function
+    averages v then), q read once, the f32 output written once; two
+    multiply-adds per (query head, position, element)."""
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    lens = kv_len.clamp(max=S)
+    rows = int(lens.masked_fill(lens <= 0, S).sum())
+    nbytes = 2 * rows * K * hd * k.element_size() + q.numel() * q.element_size() \
+        + B * H * hd * 4
+    return nbytes, 4 * rows * H * hd
+
+
+def sdpa_call(torch, q, k, v, L):
+    """The library yardstick: one SDPA call for one query token over the
+    first L positions with the GQA head mapping. Timed only; the port never
+    calls it. (callable, None) or (None, reason)."""
+    from torch.nn import functional as F
+    qs, ks, vs = q[:, :, None], k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
+
+    def call():
+        return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
+    try:
+        call()
+    except TypeError as e:                     # a torch without enable_gqa
+        return None, f"torch {torch.__version__} SDPA: {e}"
+    return call, None
+
+
+def lm_phases(torch, np, timer, smi) -> dict:
+    """Phases 6-8; returns the ``flash_decode`` entry of the kernels line."""
+    from repro_torch import serve_lm
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.transformer import decode_step, init_cache
+
+    # 6. flash_decode against its plain version on the card
+    rng = np.random.default_rng(6)
+    err = {k: 0.0 for k in FLASH_DECODE_TOL}
+    cases = flash_decode_cases(torch, np, rng)
+    for label, dlabel, q, k, v, kv_len in cases:
+        got = flash_decode(q, k, v, kv_len)
+        want = ref.flash_decode_ref(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        tol = FLASH_DECODE_TOL[dlabel]
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol, msg=label)
+        err[dlabel] = max(err[dlabel], float((got - want).abs().max()))
+    emit({"phase": "flash_decode_vs_plain", "cases": [c[0] for c in cases],
+          "kv_len_edges": [0, 1, "S", "S+5"], "max_abs_err": err,
+          "tolerance": FLASH_DECODE_TOL})
+
+    # 7. the LM serving path at full smollm-135m width
+    cfg = get_config("smollm-135m")
+    B, T, S = LM_BATCH, LM_TOKENS, LM_MAX_LEN
+    want_launches = cfg.num_layers * T
+    tokens = torch.from_numpy(serve_lm.make_tokens(cfg, batch=B, tokens=T, seed=1))
+    tok_gpu = tokens.cuda()
+    t0 = time.perf_counter()
+    model = serve_lm.build(cfg, seed=0, torch_device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def finite(name, logits):
+        if tuple(logits.shape) != (B, T, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: logits {tuple(logits.shape)} not finite")
+
+    # (a) f32 cache: the card against the same run on the CPU
+    ops.reset_launch_counts()
+    card_f32 = serve_lm.decode(model, init_cache(cfg, B, S, torch.float32, "cuda"), tok_gpu)
+    torch.cuda.synchronize()
+    launches_f32 = ops.launch_counts()["flash_decode"]
+    if launches_f32 != want_launches:
+        raise AssertionError(f"f32 run launched flash_decode {launches_f32} times, "
+                             f"not {want_launches}")
+    t0 = time.perf_counter()
+    host = serve_lm.build(cfg, seed=0, torch_device="cpu")
+    cpu_f32 = serve_lm.decode(host, init_cache(cfg, B, S, torch.float32, "cpu"), tokens)
+    cpu_s = time.perf_counter() - t0
+    del host
+    finite("card f32", card_f32)
+    finite("cpu f32", cpu_f32)
+    card_vs_cpu = float((card_f32.cpu() - cpu_f32).abs().max())
+    if card_vs_cpu > LM_CARD_VS_CPU_TOL:
+        raise AssertionError(f"f32-cache logits card vs CPU {card_vs_cpu} > "
+                             f"{LM_CARD_VS_CPU_TOL}")
+    del card_f32, cpu_f32
+
+    # (b) the serving bf16 cache: the main path, then the plain version
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kern = serve_lm.decode(model, init_cache(cfg, B, S, device="cuda"), tok_gpu)
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if launches["flash_decode"] != want_launches:
+        raise AssertionError(f"the LM path launched flash_decode "
+                             f"{launches['flash_decode']} times, not {want_launches}")
+    model.use_kernels = False
+    plain = serve_lm.decode(model, init_cache(cfg, B, S, device="cuda"), tok_gpu)
+    model.use_kernels = True
+    torch.cuda.synchronize()
+    if ops.launch_counts() != launches:
+        raise AssertionError("use_kernels=False launched a kernel")
+    finite("card bf16 kernel", kern)
+    finite("card bf16 plain", plain)
+    # The two runs' logits are reported, not held to a limit: a ~1e-7
+    # difference in an attention output sometimes flips the bf16 rounding of
+    # a key or value written to the cache, which moves later outputs by a
+    # bf16 step (most at early positions, where the newest value dominates
+    # the attention). The f32-cache run above is the end-to-end limit; the
+    # kernel itself is held to its plain version at every call of the path,
+    # on that call's own inputs, below.
+    drift_by_pos = (kern - plain).abs().amax(dim=(0, 2))
+    top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    del kern, plain
+    worst = torch.zeros((), device="cuda")
+    kernel_call = ops.decode_attention
+
+    def shadowed(q, k, v, kv_len, *, use_kernel=True):
+        out = kernel_call(q, k, v, kv_len, use_kernel=use_kernel)
+        torch.maximum(worst, (out - ref.flash_decode_ref(q, k, v, kv_len)).abs().max(),
+                      out=worst)
+        return out
+    ops.decode_attention = shadowed
+    try:
+        serve_lm.decode(model, init_cache(cfg, B, S, device="cuda"), tok_gpu)
+    finally:
+        ops.decode_attention = kernel_call
+    per_call = float(worst)
+    if per_call > FLASH_DECODE_TOL["path"]:
+        raise AssertionError(f"flash_decode on the LM path: {per_call} from its plain "
+                             f"version > {FLASH_DECODE_TOL['path']}")
+    emit({"phase": "lm_main_path", "arch": cfg.name, "layers": cfg.num_layers,
+          "batch": B, "positions": T, "cache_len": S, "weights": "f32, seed 0",
+          "launches": launches, "launches_f32_run": launches_f32,
+          "f32_cache_max_abs_card_vs_cpu": card_vs_cpu,
+          "bf16_cache_kernel_vs_plain_per_call_max_abs": per_call,
+          "bf16_cache_logits_max_abs_kernel_vs_plain": float(drift_by_pos.max()),
+          "bf16_cache_logits_max_abs_at_position": {
+              str(p): float(drift_by_pos[p]) for p in (0, 1, 15, 63, 127, T - 1)
+              if p < T},
+          "bf16_cache_top1_agreement": top1,
+          "setup_s": setup_s, "path_s": path_s, "cpu_run_s": cpu_s})
+
+    # 8. timing: the kernel at the path's shape and one decode_32k layer
+    def shape_times(B, S, L, t, reps):
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        g = torch.Generator(device="cuda").manual_seed(S)
+        q = torch.randn((B, H, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+        k = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+        v = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+        kv_len = torch.full((B,), L, dtype=torch.int32, device="cuda")
+        got = flash_decode(q, k, v, kv_len)
+        err = float((got - ref.flash_decode_ref(q, k, v, kv_len)).abs().max())
+        if err > FLASH_DECODE_TOL["bf16"]:
+            raise AssertionError(f"flash_decode at B {B}, S {S}: error {err}")
+        lib, reason = sdpa_call(torch, q, k, v, L)
+        if lib is not None:
+            lib_err = float((lib()[:, :, 0].float() - got).abs().max())
+            if lib_err > FLASH_DECODE_TOL["bf16"]:
+                raise AssertionError(f"SDPA disagrees with the kernel by {lib_err}")
+        out = {"shape": {"B": B, "S": S, "kv_len": L, "H": H, "K": K, "hd": hd,
+                         "dtype": "bf16"},
+               "max_abs_err": err,
+               "ms": t.ms(lambda: flash_decode(q, k, v, kv_len), reps),
+               "plain_ms": t.ms(lambda: ref.flash_decode_ref(q, k, v, kv_len), reps),
+               "library_ms": t.ms(lib, reps) if lib is not None else None,
+               "library": "F.scaled_dot_product_attention(enable_gqa=True)"
+                          if lib is not None else reason}
+        out["bound_ms"], out["bound_by"] = bound_ms(
+            *flash_decode_bytes_ops(q, k, kv_len), BF16_OPS_PER_S)
+        return out
+
+    path_shape = shape_times(B, S, T, timer, 0)
+    d32 = SHAPES["decode_32k"]
+    long_shape = shape_times(d32.global_batch, d32.seq_len, d32.seq_len, timer, 10)
+    torch.cuda.empty_cache()
+
+    caches = {"kernels": init_cache(cfg, B, S, device="cuda"),
+              "plain": init_cache(cfg, B, S, device="cuda")}
+    walls = {"kernels": [], "plain": []}
+    for t in range(T):                         # in turns, same tokens
+        for name, cache in caches.items():
+            model.use_kernels = name == "kernels"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_step(model, cache, tok_gpu[:, t:t + 1], t)
+            torch.cuda.synchronize()
+            if t >= 8:                         # first steps warm up
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+    wall_ms = {k: statistics.median(v) for k, v in walls.items()}
+    prof = {}
+    for name, cache in caches.items():         # positions T .. T + 7
+        model.use_kernels = name == "kernels"
+        prof[name] = device_profile(
+            torch, lambda cache=cache: [decode_step(model, cache, tok_gpu[:, p - T:p - T + 1], p)
+                                        for p in range(T, T + 8)], 8)
+        prof[name]["idle_share"] = (1.0 - prof[name]["device_busy_us"] / (wall_ms[name] * 1e3)
+                                    if prof[name]["device_ops"] else None)
+    model.use_kernels = True
+    emit({"phase": "lm_timing", "card": smi,
+          "flash_decode_path_shape": path_shape,
+          "flash_decode_decode_32k": long_shape,
+          "decode_step_ms_median": wall_ms,
+          "decode_step_ms_min": {k: min(v) for k, v in walls.items()},
+          "decode_steps": len(walls["kernels"]),
+          "decode_step_profile": prof})
+    return {"launches": launches["flash_decode"],
+            "max_abs_err": max(max(err.values()), per_call, path_shape["max_abs_err"],
+                               long_shape["max_abs_err"]),
+            "ms": path_shape["ms"]["median"],
+            "plain_ms": path_shape["plain_ms"]["median"],
+            "bound_ms": path_shape["bound_ms"], "bound_by": path_shape["bound_by"],
+            "library_ms": (path_shape["library_ms"] or {}).get("median")}
 
 
 def main() -> int:
@@ -264,8 +526,8 @@ def main() -> int:
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     launches = ops.launch_counts()
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel never ran on the main path: {launches}")
+    if min(launches["gather_pool"], launches["cache_probe"]) == 0:
+        raise AssertionError(f"a kernel never ran on the DLRM path: {launches}")
     model_cpu, engine_cpu = serve_dlrm.build(arch, seed=0, torch_device="cpu",
                                              cfg=cfg)
     cpu = serve_dlrm.serve(model_cpu, engine_cpu, traffic)
@@ -336,7 +598,9 @@ def main() -> int:
             if i >= 4:                         # first batches warm up
                 walls[name].append((time.perf_counter() - t0) * 1e3)
     wall_ms = {k: statistics.median(v) for k, v in walls.items()}
-    prof = {name: profile_serve(torch, eng, timing[:8])
+    prof = {name: device_profile(
+                torch, lambda eng=eng: [eng.serve_batch(tb["user"], bg_iops=10_000.0)
+                                        for tb in timing[:8]], 8)
             for name, eng in (("kernels", engine), ("plain", engine_plain))}
     for name, p in prof.items():             # no device events: not measured
         p["idle_share"] = (1.0 - p["device_busy_us"] / (wall_ms[name] * 1e3)
@@ -349,7 +613,11 @@ def main() -> int:
           "serve_batch_ms_median": wall_ms,
           "serve_batch_batches": len(walls["kernels"]),
           "serve_batch_profile": prof,
-          "launches_per_batch": {k: v / len(traffic) for k, v in launches.items()}})
+          "launches_per_batch": {k: launches[k] / len(traffic)
+                                 for k in ("gather_pool", "cache_probe")}})
+
+    # 6-8. the LM decode path and its flash_decode kernel
+    fd = lm_phases(torch, np, timer, smi)
 
     emit({"kernels": [
         {"name": "gather_pool", "route": "cuda",
@@ -364,6 +632,9 @@ def main() -> int:
          "launches": launches["cache_probe"],
          "max_abs_err": err["cache_probe"], "ms": cp_ms, "plain_ms": cp_plain,
          "bound_ms": cp_bound, "bound_by": cp_by, "library_ms": None},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:88", **fd},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,11 @@ and what each kernel is held against on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30     # the mask value of the reference (not -inf)
 
 
 def gather_pool_ref(payload: torch.Tensor, scale: torch.Tensor,
@@ -29,3 +33,22 @@ def cache_probe_ref(tag_table, tag_row, data, q_table, q_row, sets):
     onehot = match.to(torch.float32)
     values = torch.einsum("nw,nwd->nd", onehot, data[s].to(torch.float32))
     return values, hit.to(torch.int32)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """q [B, H, hd]; k/v [B, S, K, hd]; kv_len [B]. Returns [B, H, hd] f32.
+
+    Query head h reads KV head h // (H // K). Positions at or past
+    ``kv_len`` score -1e30, so a row with ``kv_len == 0`` averages v over
+    all S, and ``kv_len > S`` behaves as S."""
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    kr = k.repeat_interleave(G, dim=2).to(torch.float32)     # [B, S, H, hd]
+    vr = v.repeat_interleave(G, dim=2).to(torch.float32)
+    scores = torch.einsum("bhd,bshd->bhs", q.to(torch.float32), kr) / math.sqrt(hd)
+    mask = torch.arange(S, device=k.device)[None, :] < kv_len[:, None]   # [B, S]
+    scores = scores.masked_fill(~mask[:, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", probs, vr)

@@ -70,7 +70,8 @@ def test_three_batches_match_reference(use_kernels):
         idx = np.where(rng.random(idx.shape) < 0.5, hot, idx).astype(np.int32)
         _serve_both(j, t, idx, bg_iops=1e4 * (rep + 1))
     # CPU tensors take the plain versions: nothing launched
-    assert ops.launch_counts() == {"gather_pool": 0, "cache_probe": 0}
+    assert ops.launch_counts() == {"gather_pool": 0, "cache_probe": 0,
+                                   "flash_decode": 0}
     assert 0.0 < t.hit_rate < 1.0
 
 

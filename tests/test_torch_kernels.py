@@ -37,7 +37,8 @@ def _torch(*arrays):
 def _no_launches():
     ops.reset_launch_counts()
     yield
-    assert ops.launch_counts() == {"gather_pool": 0, "cache_probe": 0}
+    assert ops.launch_counts() == {"gather_pool": 0, "cache_probe": 0,
+                                   "flash_decode": 0}
 
 
 # ---------------------------------------------------------------------------
