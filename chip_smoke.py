@@ -5,7 +5,9 @@ Phases, one JSON line each:
 
 1. device  -- the card as ``nvidia-smi`` and torch name it; TF32 off.
 2. build   -- ``nvcc`` builds every kernel in ``src/repro_torch/csrc`` (one
-              process per source, all started together).
+              process per source, all started together); the registers and
+              spills ``-Xptxas -v`` reports for each entry function, and no
+              spill allowed.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
               the serving path's shapes plus edge cases.
 4. main    -- the serving path (``repro_torch.serve_dlrm``: device serving
@@ -21,7 +23,9 @@ Phases, one JSON line each:
 6. flash_decode -- the decode-attention kernel against its plain version:
               f32, bf16 and the serving path's f32 query over a bf16
               cache, at the shapes of ``tests/test_kernels.py``, the
-              smollm-135m shape, a ragged S, and kv_len 0, 1, S and > S.
+              smollm-135m, granite-3-2b (G 4) and granite-34b (G 48, hd
+              128) shapes, ragged S, and kv_len 0, 1, S and > S; the
+              arrival counters are all 0 afterwards.
 7. lm_main -- the LM serving path (``repro_torch.serve_lm``) at the full
               ``smollm-135m`` width: 8 sequences decoded for 256 positions
               of a 1,024-position cache. (a) f32 cache on the card against
@@ -33,9 +37,13 @@ Phases, one JSON line each:
               launches ``flash_decode`` 30 x 256 times; the counters are
               zeroed just before (b)'s first run and read just after.
 8. lm_timing -- ``flash_decode`` kernel, plain and SDPA times with their
-              byte bounds at the path's shape and one ``decode_32k`` layer,
-              and the median ``decode_step`` wall per token with the kernel
-              and with the plain version, with the profiler's device time.
+              bounds (bytes, f32 operations) at the path's shape, one
+              ``decode_32k`` layer (also by split count) and one granite-34b
+              layer (B 8, S = kv_len 8,192, H 48 over K 1, hd 128), and the
+              median ``decode_step`` wall per token with the kernel and with
+              the plain version, with the profiler's device time; the
+              profile must show one ``flash_decode`` kernel per layer and no
+              combine kernel.
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -48,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -64,6 +73,7 @@ BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
 FLASH_DECODE_TOL = {"f32": 1e-5, "bf16": 2e-2, "path": 2e-2}  # tests/test_kernels.py:124
 LM_CARD_VS_CPU_TOL = 1e-4
 LM_BATCH, LM_TOKENS, LM_MAX_LEN = 8, 256, 1024
+SPIN_CYCLES = 1_000_000          # about 0.5 ms at the H100's clock
 
 
 def emit(obj) -> None:
@@ -77,6 +87,34 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_summary(log: str, nvcc: str) -> list:
+    """[kernel, registers, spill store bytes, spill load bytes] for each entry
+    function in an ``nvcc -Xptxas -v`` log, names demangled by ``cu++filt``
+    when the toolkit has it."""
+    rows, fn, spill = [], None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            rows.append([fn, int(m.group(1)), *spill])
+            fn = None
+    cufilt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if rows and os.path.exists(cufilt):
+        names = subprocess.run([cufilt], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for r, name in zip(rows, names):
+            name = re.sub(r"\(anonymous namespace\)::|<unnamed>::|\(int\)", "",
+                          name.strip())
+            if name.endswith(")"):
+                r[0] = name[:name.rfind("(")].removeprefix("void ")
+    return rows
+
+
 def bound_ms(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / ops_per_s * 1e3
@@ -86,7 +124,10 @@ def bound_ms(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
 class Timer:
     """Device time of one call (CUDA events), L2 flushed before each sample
     by reading a 128 MB buffer: a read leaves no dirty lines whose write-back
-    would overlap the timed call. Median and spread of ``reps`` samples."""
+    would overlap the timed call. The device then spins for about half a
+    millisecond, so the host has queued the call before the first event is
+    reached and its launch overhead is not timed. Median and spread of
+    ``reps`` samples."""
 
     def __init__(self, torch, reps: int = 50, warmup: int = 5):
         self.torch, self.reps, self.warmup = torch, reps, warmup
@@ -102,6 +143,7 @@ class Timer:
             self.flush.sum()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
             a.record()
             fn()
             b.record()
@@ -166,10 +208,11 @@ def cache_probe_cases(torch, np, rng):
     return [main, case("w32", 64, 32, 96, 500), tuple(two)]
 
 
-def device_profile(torch, run, nb: int):
+def device_profile(torch, run, nb: int, named=()):
     """Per step of ``run`` (which runs ``nb`` steps) under ``torch.profiler``:
     the device's busy time (one stream, so the sum of its kernels, copies and
-    fills), the number of device operations and the heaviest ones by name."""
+    fills), the number of device operations, the heaviest ones by name and
+    the number whose name holds each string of ``named``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -183,7 +226,9 @@ def device_profile(torch, run, nb: int):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return {"device_busy_us": sum(us for _, us in by_name.values()) / nb,
             "device_ops": sum(n for n, _ in by_name.values()) / nb,
-            "top_us": [[name[:70], n / nb, us / nb] for name, (n, us) in top]}
+            "top_us": [[name[:70], n / nb, us / nb] for name, (n, us) in top],
+            "ops_named": {key: sum(n for name, (n, _) in by_name.items() if key in name) / nb
+                          for key in named}}
 
 
 def gather_pool_bytes_ops(payload, idx):
@@ -207,7 +252,8 @@ def flash_decode_cases(torch, np, rng):
     with four or more rows take kv_len 0, 1, S and S + 5."""
     shapes = [("mha", 1, 4, 4, 32, 512), ("gqa4", 2, 8, 2, 64, 1024),
               ("mqa", 2, 16, 1, 128, 512), ("smollm", 8, 9, 3, 64, 1024),
-              ("ragged", 4, 9, 3, 64, 1000), ("ragged_hd16", 5, 6, 2, 16, 77)]
+              ("ragged", 4, 9, 3, 64, 1000), ("ragged_hd16", 5, 6, 2, 16, 77),
+              ("granite_3_2b", 5, 32, 8, 64, 300), ("granite_34b", 4, 48, 1, 128, 1000)]
     dtypes = [("f32", torch.float32, torch.float32),
               ("bf16", torch.bfloat16, torch.bfloat16),
               ("path", torch.float32, torch.bfloat16)]   # f32 q over a bf16 cache
@@ -261,6 +307,7 @@ def lm_phases(torch, np, timer, smi) -> dict:
     from repro_torch import serve_lm
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import flash_decode as fd_module
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.models.transformer import decode_step, init_cache
 
@@ -275,6 +322,8 @@ def lm_phases(torch, np, timer, smi) -> dict:
         tol = FLASH_DECODE_TOL[dlabel]
         torch.testing.assert_close(got, want, rtol=tol, atol=tol, msg=label)
         err[dlabel] = max(err[dlabel], float((got - want).abs().max()))
+    if any(bool(buf.any()) for buf in fd_module._COUNTERS.values()):
+        raise AssertionError("flash_decode left an arrival counter nonzero")
     emit({"phase": "flash_decode_vs_plain", "cases": [c[0] for c in cases],
           "kv_len_edges": [0, 1, "S", "S+5"], "max_abs_err": err,
           "tolerance": FLASH_DECODE_TOL})
@@ -372,38 +421,64 @@ def lm_phases(torch, np, timer, smi) -> dict:
           "bf16_cache_top1_agreement": top1,
           "setup_s": setup_s, "path_s": path_s, "cpu_run_s": cpu_s})
 
-    # 8. timing: the kernel at the path's shape and one decode_32k layer
-    def shape_times(B, S, L, t, reps):
-        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # 8. timing: the kernel at the path's shape, one decode_32k layer and one
+    # granite-34b layer (G = 48, hd 128)
+    def decode_inputs(B, S, L, H, K, hd):
         g = torch.Generator(device="cuda").manual_seed(S)
         q = torch.randn((B, H, hd), generator=g, device="cuda", dtype=torch.bfloat16)
         k = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
         v = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
-        kv_len = torch.full((B,), L, dtype=torch.int32, device="cuda")
+        return q, k, v, torch.full((B,), L, dtype=torch.int32, device="cuda")
+
+    def shape_times(B, S, L, H, K, hd, t, reps):
+        q, k, v, kv_len = decode_inputs(B, S, L, H, K, hd)
         got = flash_decode(q, k, v, kv_len)
         err = float((got - ref.flash_decode_ref(q, k, v, kv_len)).abs().max())
         if err > FLASH_DECODE_TOL["bf16"]:
-            raise AssertionError(f"flash_decode at B {B}, S {S}: error {err}")
+            raise AssertionError(f"flash_decode at B {B}, S {S}, H {H}: error {err}")
         lib, reason = sdpa_call(torch, q, k, v, L)
         if lib is not None:
             lib_err = float((lib()[:, :, 0].float() - got).abs().max())
             if lib_err > FLASH_DECODE_TOL["bf16"]:
                 raise AssertionError(f"SDPA disagrees with the kernel by {lib_err}")
+        nbytes, nops = flash_decode_bytes_ops(q, k, kv_len)
+        tiles = fd_module.head_tiles(H // K)[0]
+        n_split = fd_module.split_count(B, K, S, torch.cuda.get_device_properties(0)
+                                        .multi_processor_count, tiles)
         out = {"shape": {"B": B, "S": S, "kv_len": L, "H": H, "K": K, "hd": hd,
                          "dtype": "bf16"},
-               "max_abs_err": err,
+               "splits": n_split, "busy_splits": fd_module.busy_splits(L, S, n_split, hd),
+               "head_tiles": tiles, "max_abs_err": err,
                "ms": t.ms(lambda: flash_decode(q, k, v, kv_len), reps),
                "plain_ms": t.ms(lambda: ref.flash_decode_ref(q, k, v, kv_len), reps),
                "library_ms": t.ms(lib, reps) if lib is not None else None,
                "library": "F.scaled_dot_product_attention(enable_gqa=True)"
-                          if lib is not None else reason}
-        out["bound_ms"], out["bound_by"] = bound_ms(
-            *flash_decode_bytes_ops(q, k, kv_len), BF16_OPS_PER_S)
+                          if lib is not None else reason,
+               "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_f32_ops_ms": nops / FP32_OPS_PER_S * 1e3}
+        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops, BF16_OPS_PER_S)
         return out
 
-    path_shape = shape_times(B, S, T, timer, 0)
+    path_shape = shape_times(B, S, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                             timer, 0)
     d32 = SHAPES["decode_32k"]
-    long_shape = shape_times(d32.global_batch, d32.seq_len, d32.seq_len, timer, 10)
+    long_shape = shape_times(d32.global_batch, d32.seq_len, d32.seq_len, cfg.num_heads,
+                             cfg.num_kv_heads, cfg.head_dim, timer, 10)
+    q, k, v, kv_len = decode_inputs(d32.global_batch, d32.seq_len, d32.seq_len,
+                                    cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    split_count = fd_module.split_count
+    long_shape["ms_by_splits"] = {}
+    try:                                       # the same call at forced split counts
+        for n in (1, 2, 4, 8, 16):
+            fd_module.split_count = lambda *args, n=n: n
+            long_shape["ms_by_splits"][n] = timer.ms(
+                lambda: flash_decode(q, k, v, kv_len), 10)["median"]
+    finally:
+        fd_module.split_count = split_count
+    del q, k, v, kv_len
+    g34 = get_config("granite-34b")
+    mqa_shape = shape_times(LM_BATCH, 8192, 8192, g34.num_heads, g34.num_kv_heads,
+                            g34.head_dim, timer, 10)
     torch.cuda.empty_cache()
 
     caches = {"kernels": init_cache(cfg, B, S, device="cuda"),
@@ -424,20 +499,26 @@ def lm_phases(torch, np, timer, smi) -> dict:
         model.use_kernels = name == "kernels"
         prof[name] = device_profile(
             torch, lambda cache=cache: [decode_step(model, cache, tok_gpu[:, p - T:p - T + 1], p)
-                                        for p in range(T, T + 8)], 8)
+                                        for p in range(T, T + 8)], 8,
+            named=("flash_decode", "combine"))
         prof[name]["idle_share"] = (1.0 - prof[name]["device_busy_us"] / (wall_ms[name] * 1e3)
                                     if prof[name]["device_ops"] else None)
     model.use_kernels = True
+    named = prof["kernels"]["ops_named"]
+    if named["flash_decode"] != cfg.num_layers or named["combine"]:
+        raise AssertionError(f"decode step profile: {named} device kernels per step, "
+                             f"want {cfg.num_layers} flash_decode and no combine")
     emit({"phase": "lm_timing", "card": smi,
           "flash_decode_path_shape": path_shape,
           "flash_decode_decode_32k": long_shape,
+          "flash_decode_granite_34b": mqa_shape,
           "decode_step_ms_median": wall_ms,
           "decode_step_ms_min": {k: min(v) for k, v in walls.items()},
           "decode_steps": len(walls["kernels"]),
           "decode_step_profile": prof})
     return {"launches": launches["flash_decode"],
             "max_abs_err": max(max(err.values()), per_call, path_shape["max_abs_err"],
-                               long_shape["max_abs_err"]),
+                               long_shape["max_abs_err"], mqa_shape["max_abs_err"]),
             "ms": path_shape["ms"]["median"],
             "plain_ms": path_shape["plain_ms"]["median"],
             "bound_ms": path_shape["bound_ms"], "bound_by": path_shape["bound_by"],
@@ -472,11 +553,12 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     reports = build.build_all()
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, log in reports.items()}
+    ptxas = {name: ptxas_summary(log, build.nvcc_path()) for name, log in reports.items()}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "ptxas": ptxas})
+    spilled = [(name, f) for name, fns in ptxas.items() for f in fns if any(f[2:])]
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers: {spilled}")
 
     # 3. each kernel against its plain version on the card
     rng = np.random.default_rng(0)

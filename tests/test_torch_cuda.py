@@ -9,7 +9,8 @@ import torch
 from repro_torch import serve_lm
 from repro_torch.configs import get_config
 from repro_torch.core.io_sim import DEVICES
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels.cache_probe import cache_probe
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.gather_pool import gather_pool
@@ -83,25 +84,62 @@ def test_engine_on_card_matches_cpu(cuda):
         assert torch.equal(v.cpu(), host.state[k]), k
 
 
-@pytest.mark.parametrize("B,H,K,hd,S", [
-    (1, 4, 4, 32, 512), (2, 8, 2, 64, 1024), (2, 16, 1, 128, 512),
-    (8, 9, 3, 64, 1024), (4, 6, 2, 16, 77),            # G = 3; ragged S
-])
-@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
-                                      (torch.float32, torch.bfloat16),
-                                      (torch.bfloat16, torch.bfloat16)])
-def test_flash_decode_kernel_matches_plain(cuda, B, H, K, hd, S, qdt, kvdt):
-    g = torch.Generator(device=cuda).manual_seed(S + hd)
+def _decode_inputs(cuda, B, H, K, hd, S, qdt, kvdt, seed):
+    """Seeded q/k/v; kv_len random per row, rows 0-3 at 0, 1, S and S + 5."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn((B, H, hd), generator=g, device=cuda).to(qdt)
     k = torch.randn((B, S, K, hd), generator=g, device=cuda).to(kvdt)
     v = torch.randn((B, S, K, hd), generator=g, device=cuda).to(kvdt)
     lens = torch.randint(0, S + 3, (B,), generator=g, device=cuda)
     lens[: min(B, 4)] = torch.tensor([0, 1, S, S + 5], device=cuda)[: min(B, 4)]
-    kv_len = lens.to(torch.int32)
+    return q, k, v, lens.to(torch.int32)
+
+
+@pytest.mark.parametrize("B,H,K,hd,S", [
+    (1, 4, 4, 32, 512), (2, 8, 2, 64, 1024), (2, 16, 1, 128, 512),   # G 1, 4, 16
+    (8, 9, 3, 64, 1024), (4, 6, 2, 16, 77),            # G = 3; ragged S
+    (5, 32, 8, 64, 300),                               # granite-3-2b: G 4
+    (4, 48, 1, 128, 1000),                             # granite-34b: G 48
+    (3, 20, 2, 40, 129), (4, 9, 1, 24, 200),           # lanes padded to 8, 4
+    (180, 9, 3, 64, 150),                              # B*K fills the card: 1 split
+])
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.float32, torch.bfloat16),
+                                      (torch.bfloat16, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
+def test_flash_decode_kernel_matches_plain(cuda, B, H, K, hd, S, qdt, kvdt):
+    q, k, v, kv_len = _decode_inputs(cuda, B, H, K, hd, S, qdt, kvdt, S + hd)
     got = flash_decode(q, k, v, kv_len)
     tol = 2e-2 if torch.bfloat16 in (qdt, kvdt) else 1e-5
     torch.testing.assert_close(got, ref.flash_decode_ref(q, k, v, kv_len),
                                rtol=tol, atol=tol)
+
+
+def test_flash_decode_counters_reset_between_calls(cuda):
+    """Three calls back to back on one stream, with different split counts
+    (8, 16, 6 on 132 SMs) and B*K, each held to the plain version: a counter
+    left nonzero by one would make a later row merge too early or never
+    write out."""
+    shapes = [(6, 9, 3, 64, 2048), (2, 8, 2, 64, 4096), (30, 9, 3, 64, 2048)]
+    calls = []
+    for i, (B, H, K, hd, S) in enumerate(shapes):
+        q, k, v, kv_len = _decode_inputs(cuda, B, H, K, hd, S, torch.float32,
+                                         torch.float32, i)
+        calls.append(((q, k, v, kv_len), flash_decode(q, k, v, kv_len)))
+    for args, got in calls:
+        torch.testing.assert_close(got, ref.flash_decode_ref(*args), rtol=1e-5, atol=1e-5)
+    for buf in fd._COUNTERS.values():
+        assert not buf.any()
+
+
+def test_flash_decode_rules_match_the_kernel(cuda):
+    q, k, v, kv_len = _decode_inputs(cuda, 1, 2, 1, 16, 8, torch.float32,
+                                     torch.float32, 0)
+    flash_decode(q, k, v, kv_len)
+    lib = build.load("flash_decode", fd._SIGNATURES)
+    for hd in range(16, 129, 8):
+        assert lib.flash_decode_tile_positions(hd) == fd.tile_positions(hd)
+        assert lib.flash_decode_smem_bytes(fd.MAX_HEADS, hd, 4) <= fd.MAX_SMEM_BYTES
 
 
 def test_lm_decode_on_card_matches_cpu(cuda):

@@ -14,6 +14,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.models import layers as jlayers
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels.flash_decode import flash_decode, split_count
 from repro_torch.models import layers as tlayers
 
@@ -144,10 +145,57 @@ def test_wrapper_rejects_bad_operands():
 
 def test_split_count_fills_the_card():
     sms = 132
-    assert split_count(8, 3, 1024, sms) == 22        # serving path: 528 blocks
+    assert split_count(8, 3, 1024, sms) == 4         # serving path: spans of 256
     assert split_count(128, 3, 32_768, sms) == 2     # decode_32k: 768 blocks
-    assert split_count(8, 3, 20, sms) == 2           # no split under 16 positions
+    assert split_count(8, 3, 20, sms) == 1           # no split under 256 positions
+    assert split_count(8, 3, 600, sms) == 2
     assert split_count(1024, 16, 4096, sms) == 1
+    assert split_count(8, 1, 8192, sms, tiles=6) == 11   # granite-34b: 528 blocks
+
+
+@pytest.mark.parametrize("kv_len,S,n_split,hd,busy", [
+    (256, 1024, 4, 64, 1),        # the LM path's longest row: one split, no merge
+    (264, 1024, 4, 64, 1),        # no split of a few positions past 256
+    (600, 1024, 4, 64, 2),        # two spans of 320 and 280
+    (1, 1024, 4, 64, 1),
+    (0, 1024, 4, 64, 4),          # kv_len 0 walks all S
+    (2000, 1024, 4, 64, 4),       # kv_len > S walks S
+    (32_768, 32_768, 2, 64, 2),   # decode_32k
+    (600, 1024, 4, 16, 2),        # hd 16: spans of a whole 256-position tile
+    (8192, 8192, 11, 128, 11),    # granite-34b: spans of 768 (24 tiles of 32)
+    (77, 77, 5, 24, 1),
+])
+def test_busy_splits_follow_the_walked_length(kv_len, S, n_split, hd, busy):
+    assert fd.busy_splits(kv_len, S, n_split, hd) == busy
+    assert fd.busy_splits(kv_len, S, n_split, hd) <= n_split
+
+
+@pytest.mark.parametrize("hd,tile", [(16, 256), (24, 128), (32, 128), (40, 64),
+                                     (64, 64), (72, 32), (128, 32)])
+def test_tile_positions(hd, tile):
+    assert fd.tile_positions(hd) == tile
+
+
+@pytest.mark.parametrize("G,tiles,heads", [(1, 1, 1), (3, 1, 3), (4, 1, 4),
+                                           (8, 1, 8), (9, 2, 5), (16, 2, 8),
+                                           (48, 6, 8)])
+def test_head_tiles(G, tiles, heads):
+    assert fd.head_tiles(G) == (tiles, heads)
+    assert heads <= fd.MAX_HEADS and tiles * heads >= G > (tiles - 1) * heads
+
+
+def test_counter_buffer_per_device_and_stream(monkeypatch):
+    monkeypatch.setattr(fd, "_COUNTERS", {})
+    cpu = torch.device("cpu")
+    a = fd.counter_buffer(cpu, 1, 24)
+    assert a.dtype == torch.int32 and a.numel() == 24 and not a.any()
+    assert fd.counter_buffer(cpu, 1, 10) is a        # big enough: kept
+    b = fd.counter_buffer(cpu, 2, 10)                # another stream: its own
+    assert b is not a and b.numel() == 10
+    a[3] = 7                                          # as a fault would leave it
+    c = fd.counter_buffer(cpu, 1, 100)               # grown: new and zeroed
+    assert c is not a and c.numel() == 100 and not c.any()
+    assert fd.counter_buffer(cpu, 1, 24) is c and fd.counter_buffer(cpu, 2, 5) is b
 
 
 def test_kernel_is_built_from_the_checkout():
@@ -155,3 +203,4 @@ def test_kernel_is_built_from_the_checkout():
     text = (build.CSRC / "flash_decode.cu").read_text()
     assert "src/repro/kernels/flash_decode.py" in text
     assert "__expf" not in text and "use_fast_math" not in " ".join(build.NVCC_FLAGS)
+    assert "combine_kernel" not in text and "cp.async.cg.shared.global" in text
