@@ -9,17 +9,25 @@ Phases, one JSON line each:
               spills ``-Xptxas -v`` reports for each entry function, and no
               spill allowed.
 3. kernels -- each kernel against its plain PyTorch version on the card, at
-              the serving path's shapes plus edge cases.
+              the serving path's shapes plus edge cases, and the DLRM
+              kernels at ``m1_batch``: 128 queries of the paper's M1 (7,808
+              bags of 42 rows of 128 bytes from 16,777,216 rows; 327,936
+              probes into a 1,048,576 x 8 x 128 f32 cache), made on the card.
 4. main    -- the serving path (``repro_torch.serve_dlrm``: device serving
               engine + DLRM scoring) at the full ``DLRMArch()`` width: four
               batches of 32 queries, then the first batch again. The launch
               counters are zeroed just before and read just after; the same
               run on the CPU must give equal ``sm_ios``, ``latency_us``,
               hit rate and cache state, pooled bags and scores within 1e-5.
-5. timing  -- kernel and plain times (CUDA events, median of 50 single
-              calls, L2 flushed before each), each kernel's bound from
-              this run's inputs, and the median ``serve_batch`` wall time
-              with the kernels and with the plain versions.
+5. timing  -- kernel, plain and library times (CUDA events, median of 50
+              single calls, 20 at ``m1_batch``, L2 flushed before each) at
+              the path's shape and at ``m1_batch``, each kernel's bound from
+              those inputs, the timer's floor (a one-element ``zero_()``
+              timed the same way), ``gather_pool`` at ``m1_batch`` from an
+              L2-resident slice of the store and a plain 4-byte random
+              gather of its indices, the median ``serve_batch`` wall time with
+              the kernels and with the plain versions, and the profiler's
+              device µs per call of each kernel inside the step.
 6. flash_decode -- the decode-attention kernel against its plain version:
               f32, bf16 and the serving path's f32 query over a bf16
               cache, at the shapes of ``tests/test_kernels.py``, the
@@ -50,7 +58,9 @@ Then the ``kernels`` summary line, and last
 Any failed check raises, so the script exits non-zero; without CUDA it exits
 non-zero before printing any result.
 
-Run from the repository root: python3 chip_smoke.py
+Run from the repository root: python3 chip_smoke.py. With ``--kernels`` it
+runs phases 1-3 and the kernel times of phase 5 only, and prints no ``ok``
+line (a quick check of the DLRM kernels, or of another checkout's).
 """
 from __future__ import annotations
 
@@ -74,6 +84,10 @@ FLASH_DECODE_TOL = {"f32": 1e-5, "bf16": 2e-2, "path": 2e-2}  # tests/test_kerne
 LM_CARD_VS_CPU_TOL = 1e-4
 LM_BATCH, LM_TOKENS, LM_MAX_LEN = 8, 256, 1024
 SPIN_CYCLES = 1_000_000          # about 0.5 ms at the H100's clock
+# m1_batch: 128 queries of the paper's M1 (src/repro/configs/dlrm_models.py:4-19):
+# 61 user tables pooling 42 rows each, 128-byte rows (136 with scale and bias)
+M1_GATHER_POOL = dict(R=1 << 24, D=128, N=128 * 61, P=42)
+M1_CACHE_PROBE = dict(S=1 << 20, W=8, D=128, N=128 * 61 * 42)
 
 
 def emit(obj) -> None:
@@ -208,11 +222,67 @@ def cache_probe_cases(torch, np, rng):
     return [main, case("w32", 64, 32, 96, 500), tuple(two)]
 
 
+def m1_gather_pool_case(torch, R, D, N, P):
+    """``m1_batch`` for ``gather_pool``, made on the card from a seeded
+    generator: N bags of P uniform rows of a uint8 store of R rows of D."""
+    g = torch.Generator(device="cuda").manual_seed(14)
+    payload = torch.randint(0, 256, (R, D), generator=g, device="cuda", dtype=torch.uint8)
+    scale = torch.rand(R, generator=g, device="cuda") * 0.1
+    bias = torch.randn(R, generator=g, device="cuda")
+    idx = torch.randint(0, R, (N, P), generator=g, device="cuda", dtype=torch.int32)
+    return "m1_batch", payload, scale, bias, idx
+
+
+def m1_cache_probe_case(torch, S, W, D, N):
+    """``m1_batch`` for ``cache_probe``, made on the card as
+    ``cache_probe_cases`` makes its cases: a full S x W x D cache with some
+    empty ways and half of the N probes aimed at a resident key."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device="cuda", dtype=torch.int32)
+    tt, tr = ints(0, 8, (S, W)), ints(0, 100_000, (S, W))
+    tt[torch.rand((S, W), generator=g, device="cuda") < 0.1] = -1
+    data = torch.randn((S, W, D), generator=g, device="cuda")
+    sets, way = ints(0, S, (N,)), ints(0, W, (N,)).long()
+    qt, qr = ints(0, 8, (N,)), ints(100_000, 200_000, (N,))
+    hit = torch.rand(N, generator=g, device="cuda") < 0.5
+    slot = (sets.long()[hit], way[hit])
+    qt[hit], qr[hit] = tt[slot], tr[slot]
+    return "m1_batch", tt, tr, data, qt, qr, sets
+
+
+def embedding_bag_call(torch, payload, scale, bias, idx):
+    """The library yardstick for ``gather_pool``: PyTorch's row-wise
+    quantized embedding bag, on the fused [R, D + 8] rows it takes (the
+    uint8 payload, then the f32 scale and bias), built here outside the timed
+    call. Timed only; the port never calls it. (callable, None) or (None,
+    reason)."""
+    if payload.dtype != torch.uint8:
+        return None, "takes uint8 rows only"
+    fused = torch.cat([payload, scale[:, None].view(torch.uint8),
+                       bias[:, None].view(torch.uint8)], dim=1)
+    flat = idx.reshape(-1)
+    offsets = torch.arange(0, flat.numel(), idx.shape[1], dtype=torch.int32,
+                           device=idx.device)
+    op = torch.ops.quantized.embedding_bag_byte_rowwise_offsets
+
+    def call():
+        return op(fused, flat, offsets)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except Exception as e:                     # a yardstick only: report why not
+        return None, f"{type(e).__name__}: {str(e).strip().splitlines()[0][:300]}"
+    return call, None
+
+
 def device_profile(torch, run, nb: int, named=()):
     """Per step of ``run`` (which runs ``nb`` steps) under ``torch.profiler``:
     the device's busy time (one stream, so the sum of its kernels, copies and
-    fills), the number of device operations, the heaviest ones by name and
-    the number whose name holds each string of ``named``."""
+    fills), the number of device operations, the heaviest ones by name, and
+    the number and device µs of those whose name holds each string of
+    ``named``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -228,7 +298,9 @@ def device_profile(torch, run, nb: int, named=()):
             "device_ops": sum(n for n, _ in by_name.values()) / nb,
             "top_us": [[name[:70], n / nb, us / nb] for name, (n, us) in top],
             "ops_named": {key: sum(n for name, (n, _) in by_name.items() if key in name) / nb
-                          for key in named}}
+                          for key in named},
+            "us_named": {key: sum(us for name, (_, us) in by_name.items() if key in name) / nb
+                         for key in named}}
 
 
 def gather_pool_bytes_ops(payload, idx):
@@ -245,6 +317,89 @@ def cache_probe_bytes_ops(tt, data, qt, hit_slots, sets):
     n_sets = int(sets.unique().numel())        # each distinct tag line once
     nbytes = N * 12 + n_sets * 2 * W * 4 + hit_slots * D * 4 + N * (D * 4 + 4)
     return nbytes, N * W * 2
+
+
+def gather_pool_times(torch, timer, case, reps: int = 0) -> dict:
+    """Kernel, plain and library times of ``gather_pool`` on one case, with
+    its bound from the case's inputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gather_pool import gather_pool
+    label, payload, scale, bias, idx = case
+    got = gather_pool(payload, scale, bias, idx)
+    lib, reason = embedding_bag_call(torch, payload, scale, bias, idx)
+    lib_diff = None
+    if lib is not None:
+        torch.testing.assert_close(lib(), got, **GATHER_POOL_TOL,
+                                   msg=f"embedding_bag_byte_rowwise_offsets at {label}")
+        lib_diff = float((lib() - got).abs().max())
+    R, D = payload.shape
+    N, P = idx.shape
+    out = {"shape": {"R": R, "D": D, "N": N, "P": P, "dtype": str(payload.dtype)},
+           "ms": timer.ms(lambda: gather_pool(payload, scale, bias, idx), reps),
+           "plain_ms": timer.ms(lambda: ref.gather_pool_ref(payload, scale, bias, idx), reps),
+           "library_ms": timer.ms(lib, reps) if lib is not None else None,
+           "library": ("torch.ops.quantized.embedding_bag_byte_rowwise_offsets"
+                       if lib is not None else reason),
+           "library_max_abs_diff": lib_diff}
+    out["bound_ms"], out["bound_by"] = bound_ms(*gather_pool_bytes_ops(payload, idx))
+    return out
+
+
+def gather_pool_access_times(torch, timer, case, reps: int = 20) -> dict:
+    """What holds ``gather_pool`` at ``m1_batch``: the same call with every
+    index folded into the store's first 65,536 rows (8.9 MB, which L2 holds
+    after the first touch), and one PyTorch gather of the same indices from
+    ``scale`` alone (4-byte random reads: the card's rate of random
+    accesses; the kernel makes three a row, payload, scale and bias)."""
+    from repro_torch.kernels.gather_pool import gather_pool
+    _, payload, scale, bias, idx = case
+    near = (idx % (1 << 16)).contiguous()
+    flat = idx.reshape(-1)
+    return {"l2_rows_ms": timer.ms(lambda: gather_pool(payload, scale, bias, near), reps),
+            "scale_gather_ms": timer.ms(lambda: scale.index_select(0, flat), reps),
+            "random_accesses": 3 * idx.numel()}
+
+
+def cache_probe_times(torch, timer, case, reps: int = 0) -> dict:
+    """Kernel and plain times of ``cache_probe`` on one case, with its bound
+    from the case's inputs (no PyTorch call probes a set-associative cache)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cache_probe import cache_probe
+    _, tt, tr, data, qt, qr, sets = case
+    hits = int(cache_probe(tt, tr, data, qt, qr, sets)[1].sum())
+    S, W, D = data.shape
+    out = {"shape": {"S": S, "W": W, "D": D, "N": qt.shape[0]}, "hits": hits,
+           "ms": timer.ms(lambda: cache_probe(tt, tr, data, qt, qr, sets), reps),
+           "plain_ms": timer.ms(lambda: ref.cache_probe_ref(tt, tr, data, qt, qr, sets), reps),
+           "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound_ms(*cache_probe_bytes_ops(tt, data, qt, hits, sets))
+    return out
+
+
+def dlrm_kernel_times(torch, timer, gp_cases, cp_cases) -> dict:
+    """Phase 5's kernel times: each DLRM kernel at the path's shape (the
+    first case) and at ``m1_batch`` (the last), what holds ``gather_pool``
+    there, and the timer's floor, a one-element ``zero_()`` timed the same
+    way."""
+    tiny = torch.zeros(1, device="cuda")
+    return {"timer_floor_ms": timer.ms(lambda: tiny.zero_()),
+            "gather_pool": {"path": gather_pool_times(torch, timer, gp_cases[0]),
+                            "m1_batch": gather_pool_times(torch, timer, gp_cases[-1], 20),
+                            "m1_batch_access": gather_pool_access_times(torch, timer,
+                                                                         gp_cases[-1])},
+            "cache_probe": {"path": cache_probe_times(torch, timer, cp_cases[0]),
+                            "m1_batch": cache_probe_times(torch, timer, cp_cases[-1], 20)}}
+
+
+def kernel_entry(times, name) -> dict:
+    """A DLRM kernel's timing keys of the ``kernels`` line: medians at the
+    path's shape, then at ``m1_batch``, beside the timer's floor."""
+    def medians(t):
+        return {"ms": t["ms"]["median"], "plain_ms": t["plain_ms"]["median"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": (t["library_ms"] or {}).get("median")}
+    return {**medians(times[name]["path"]), "m1_batch": medians(times[name]["m1_batch"]),
+            "timer_floor_ms": times["timer_floor_ms"]["median"]}
 
 
 def flash_decode_cases(torch, np, rng):
@@ -526,6 +681,9 @@ def lm_phases(torch, np, timer, smi) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:] not in ([], ["--kernels"]):
+        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -563,7 +721,8 @@ def main() -> int:
     # 3. each kernel against its plain version on the card
     rng = np.random.default_rng(0)
     err = {"gather_pool": 0.0, "cache_probe": 0.0}
-    gp_cases = gather_pool_cases(torch, np, rng)
+    gp_cases = gather_pool_cases(torch, np, rng) + [
+        m1_gather_pool_case(torch, **M1_GATHER_POOL)]
     for label, payload, scale, bias, idx in gp_cases:
         got = gather_pool(payload, scale, bias, idx)
         want = ref.gather_pool_ref(payload, scale, bias, idx)
@@ -571,7 +730,8 @@ def main() -> int:
         torch.testing.assert_close(got, want, **GATHER_POOL_TOL, msg=label)
         err["gather_pool"] = max(err["gather_pool"],
                                  float((got - want).abs().max()))
-    cp_cases = cache_probe_cases(torch, np, rng)
+    cp_cases = cache_probe_cases(torch, np, rng) + [
+        m1_cache_probe_case(torch, **M1_CACHE_PROBE)]
     probed = {}
     for label, *args in cp_cases:
         vals, hit = cache_probe(*args)
@@ -591,6 +751,11 @@ def main() -> int:
           "gather_pool_cases": [c[0] for c in gp_cases],
           "cache_probe_cases": [c[0] for c in cp_cases],
           "max_abs_err": err})
+    timer = Timer(torch)
+    if sys.argv[1:] == ["--kernels"]:          # phases 1-3 and the kernel times only
+        emit({"phase": "timing", "card": smi, **dlrm_kernel_times(torch, timer, gp_cases,
+                                                                  cp_cases)})
+        return 0
 
     # 4. the serving path at full DLRMArch() width, on the card and the CPU
     arch = DLRMArch()
@@ -652,19 +817,7 @@ def main() -> int:
           "setup_s": setup_s, "path_s": path_s})
 
     # 5. timing
-    timer = Timer(torch)
-    _, payload, scale, bias, idx = gp_cases[0]
-    gp_t = timer.ms(lambda: gather_pool(payload, scale, bias, idx))
-    gp_plain_t = timer.ms(lambda: ref.gather_pool_ref(payload, scale, bias, idx))
-    gp_ms, gp_plain = gp_t["median"], gp_plain_t["median"]
-    gp_bound, gp_by = bound_ms(*gather_pool_bytes_ops(payload, idx))
-    _, tt, tr, data, qt, qr, sets = cp_cases[0]
-    cp_t = timer.ms(lambda: cache_probe(tt, tr, data, qt, qr, sets))
-    cp_plain_t = timer.ms(lambda: ref.cache_probe_ref(tt, tr, data, qt, qr, sets))
-    cp_ms, cp_plain = cp_t["median"], cp_plain_t["median"]
-    hits = int(cache_probe(tt, tr, data, qt, qr, sets)[1].sum())
-    cp_bound, cp_by = bound_ms(*cache_probe_bytes_ops(tt, data, qt, hits, sets))
-
+    times = dlrm_kernel_times(torch, timer, gp_cases, cp_cases)
     engine_plain = DeviceServingEngine(
         {i: model.tables[i] for i in range(len(arch.user_tables))},
         DEVICES["nand_flash"], EngineConfig(use_kernels=False),
@@ -680,23 +833,28 @@ def main() -> int:
             if i >= 4:                         # first batches warm up
                 walls[name].append((time.perf_counter() - t0) * 1e3)
     wall_ms = {k: statistics.median(v) for k, v in walls.items()}
+    kernel_names = ("gather_pool", "cache_probe")
     prof = {name: device_profile(
                 torch, lambda eng=eng: [eng.serve_batch(tb["user"], bg_iops=10_000.0)
-                                        for tb in timing[:8]], 8)
+                                        for tb in timing[:8]], 8, named=kernel_names)
             for name, eng in (("kernels", engine), ("plain", engine_plain))}
     for name, p in prof.items():             # no device events: not measured
         p["idle_share"] = (1.0 - p["device_busy_us"] / (wall_ms[name] * 1e3)
                            if p["device_ops"] else None)
-    emit({"phase": "timing", "card": smi,
-          "gather_pool": {"ms": gp_t, "plain_ms": gp_plain_t, "bound_ms": gp_bound,
-                          "shape": list(idx.shape), "rows": payload.shape[0]},
-          "cache_probe": {"ms": cp_t, "plain_ms": cp_plain_t, "bound_ms": cp_bound,
-                          "probes": qt.shape[0], "hits": hits},
+    named = prof["kernels"]["ops_named"]
+    if any(named[k] != 1 for k in kernel_names):
+        raise AssertionError(f"serve_batch profile: {named} kernels per batch, want one each")
+    device_us = {k: prof["kernels"]["us_named"][k] / named[k] for k in kernel_names}
+    emit({"phase": "timing", "card": smi, **times,
+          "device_us_per_call_in_step": device_us,
           "serve_batch_ms_median": wall_ms,
           "serve_batch_batches": len(walls["kernels"]),
           "serve_batch_profile": prof,
           "launches_per_batch": {k: launches[k] / len(traffic)
                                  for k in ("gather_pool", "cache_probe")}})
+
+    del gp_cases, cp_cases, probed             # m1_batch holds about 6.5 GB
+    torch.cuda.empty_cache()
 
     # 6-8. the LM decode path and its flash_decode kernel
     fd = lm_phases(torch, np, timer, smi)
@@ -706,14 +864,14 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_pool.cu",
          "replaces": "src/repro/kernels/gather_pool.py:57",
          "launches": launches["gather_pool"],
-         "max_abs_err": err["gather_pool"], "ms": gp_ms, "plain_ms": gp_plain,
-         "bound_ms": gp_bound, "bound_by": gp_by, "library_ms": None},
+         "max_abs_err": err["gather_pool"], **kernel_entry(times, "gather_pool"),
+         "device_us_per_call_in_step": device_us["gather_pool"]},
         {"name": "cache_probe", "route": "cuda",
          "source": "src/repro_torch/csrc/cache_probe.cu",
          "replaces": "src/repro/kernels/cache_probe.py:58",
          "launches": launches["cache_probe"],
-         "max_abs_err": err["cache_probe"], "ms": cp_ms, "plain_ms": cp_plain,
-         "bound_ms": cp_bound, "bound_by": cp_by, "library_ms": None},
+         "max_abs_err": err["cache_probe"], **kernel_entry(times, "cache_probe"),
+         "device_us_per_call_in_step": device_us["cache_probe"]},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:88", **fd},

@@ -11,6 +11,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.io_sim import DEVICES
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import gather_pool as gp_module
 from repro_torch.kernels.cache_probe import cache_probe
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.gather_pool import gather_pool
@@ -58,6 +59,107 @@ def test_cache_probe_kernel_matches_plain(cuda):
     vals_ref, hit_ref = ref.cache_probe_ref(*args)
     assert torch.equal(hit, hit_ref) and int(hit.sum()) > 0
     torch.testing.assert_close(vals, vals_ref, rtol=0.0, atol=1e-6)
+
+
+def _gather_args(cuda, R, D, N, P, dtype, seed, payload=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+    if payload is None:
+        payload = torch.empty((R, D), dtype=dtype, device=cuda)
+    payload.copy_(torch.randint(lo, hi, (R, D), generator=g, device=cuda).to(dtype))
+    return (payload, torch.rand(R, generator=g, device=cuda),
+            torch.randn(R, generator=g, device=cuda),
+            torch.randint(0, R, (N, P), generator=g, device=cuda, dtype=torch.int32))
+
+
+def _in_order(payload, scale, bias, idx):
+    """The plain ops in the kernel's order: acc = acc + (q * s + b) over p."""
+    acc = torch.zeros((idx.shape[0], payload.shape[1]), device=payload.device)
+    for p in range(idx.shape[1]):
+        i = idx[:, p].long()
+        acc = acc + (payload[i].float() * scale[i][:, None] + bias[i][:, None])
+    return acc
+
+
+@pytest.mark.parametrize("D", [1, 3, 16, 24, 64, 96, 128, 164])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+@pytest.mark.parametrize("P", [0, 1, 8, 33, 42])
+def test_gather_pool_kernel_is_the_in_order_sum(cuda, D, dtype, P):
+    args = _gather_args(cuda, 500, D, 37, P, dtype, D * 100 + P)
+    got = gather_pool(*args)
+    assert torch.equal(got, _in_order(*args))
+    torch.testing.assert_close(got, ref.gather_pool_ref(*args), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [16, 64, 128, 164])
+def test_gather_pool_kernel_misaligned_store(cuda, D):
+    R = 300
+    payload = torch.empty(R * D + 1, dtype=torch.uint8, device=cuda)[1:].view(R, D)
+    args = _gather_args(cuda, R, D, 50, 42, torch.uint8, D, payload=payload)
+    assert gp_module.launch_plan(D, 1, payload.data_ptr(), 50, 42).vec == 1
+    assert torch.equal(gather_pool(*args), _in_order(*args))
+
+
+@pytest.mark.parametrize("D", [64, 2048])
+def test_gather_pool_kernel_ragged_last_block(cuda, D):
+    """N = 2,117 bags: four-bag blocks at D 64, the last one holding one;
+    at D 2,048 a bag's 16 warps span four blocks."""
+    args = _gather_args(cuda, 4000, D, 2117, 9, torch.int8, 7)
+    plan = gp_module.launch_plan(D, 1, args[0].data_ptr(), 2117, 9)
+    assert (plan.bags_per_block, plan.warps_per_bag) == ((4, 1) if D == 64 else (1, 16))
+    assert torch.equal(gather_pool(*args), _in_order(*args))
+
+
+def _probe_args(cuda, S, W, D, N, seed, hit_share=0.5, empty_share=0.1):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=cuda, dtype=torch.int32)
+    tt, tr = ints(0, 4, (S, W)), ints(0, 1000, (S, W))
+    tt[torch.rand((S, W), generator=g, device=cuda) < empty_share] = -1
+    data = torch.randn((S, W, D), generator=g, device=cuda)
+    sets, way = ints(0, S, (N,)), ints(0, W, (N,)).long()
+    qt, qr = ints(0, 4, (N,)), ints(1000, 2000, (N,))
+    hit = torch.rand(N, generator=g, device=cuda) < hit_share
+    slot = (sets.long()[hit], way[hit])
+    qt[hit], qr[hit] = tt[slot], tr[slot]
+    return tt, tr, data, qt, qr, sets
+
+
+def _probe_matches_plain(args):
+    vals, hit = cache_probe(*args)
+    vals_ref, hit_ref = ref.cache_probe_ref(*args)
+    assert torch.equal(hit, hit_ref)
+    torch.testing.assert_close(vals, vals_ref, rtol=0.0, atol=1e-6)
+    return vals, hit
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("D", [1, 24, 64, 128])
+@pytest.mark.parametrize("N", [1, 31, 33, 2048])
+def test_cache_probe_kernel_shapes(cuda, W, D, N):
+    _probe_matches_plain(_probe_args(cuda, 64, W, D, N, W * 1000 + D * 10 + N))
+
+
+@pytest.mark.parametrize("hit_share,want", [(1.0, 1), (0.0, 0)])
+def test_cache_probe_kernel_all_hit_all_miss(cuda, hit_share, want):
+    vals, hit = _probe_matches_plain(_probe_args(cuda, 64, 8, 64, 300, 3, hit_share, 0.0))
+    assert bool((hit == want).all())
+    if not want:
+        assert not vals.any()
+
+
+def test_cache_probe_kernel_sums_two_matching_ways(cuda):
+    tt = torch.full((3, 4), -1, dtype=torch.int32, device=cuda)
+    tr = torch.full((3, 4), -1, dtype=torch.int32, device=cuda)
+    tt[2, [1, 3]], tr[2, [1, 3]] = 5, 9
+    data = torch.randn((3, 4, 24), device=cuda)
+    q = torch.tensor([5, 5, 5], dtype=torch.int32, device=cuda)
+    r = torch.tensor([9, 9, 9], dtype=torch.int32, device=cuda)
+    sets = torch.tensor([2, 0, 2], dtype=torch.int32, device=cuda)
+    vals, hit = _probe_matches_plain((tt, tr, data, q, r, sets))
+    assert hit.tolist() == [1, 0, 1]
+    assert torch.equal(vals[0], data[2, 1] + data[2, 3]) and not vals[1].any()
 
 
 def test_engine_on_card_matches_cpu(cuda):

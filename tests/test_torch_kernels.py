@@ -14,6 +14,8 @@ from repro.kernels import ref as jref
 from repro.kernels.cache_probe import cache_probe as jax_cache_probe
 from repro.kernels.gather_pool import gather_pool as jax_gather_pool
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import cache_probe as cp_module
+from repro_torch.kernels import gather_pool as gp_module
 from repro_torch.kernels.cache_probe import cache_probe
 from repro_torch.kernels.gather_pool import gather_pool
 
@@ -190,3 +192,72 @@ def test_build_targets_hopper_from_checkout_sources():
         assert path == build.library_path(name)     # keyed on content only
         text = (build.CSRC / f"{name}.cu").read_text()
         assert f"src/repro/kernels/{name}.py" in text   # names what it replaces
+
+
+# ---------------------------------------------------------------------------
+# the launch plans the wrappers hand their kernels (plain Python, no device)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("D", [1, 3, 16, 24, 64, 96, 128, 164])
+@pytest.mark.parametrize("offset,align", [(0, 16), (1, 1), (2, 2), (4, 4), (8, 8), (24, 8)])
+def test_gather_pool_plan_vector_width(D, offset, align):
+    base = (1 << 20) + offset
+    plan = gp_module.launch_plan(D, 1, base, 256, 8)
+    widest = max(v for v in (1, 2, 4, 8, 16) if D % v == 0)
+    assert plan.vec == min(widest, align)
+    assert D % plan.vec == 0 and base % plan.vec == 0
+    # the bag's warps cover the row, each at most 128 bytes in 32 vectors,
+    # and the last warp holds part of it
+    cols = min(32, gp_module.SLICE_BYTES // plan.vec)
+    per_warp = -(-(D // plan.vec) // plan.warps_per_bag)
+    assert per_warp <= cols
+    assert per_warp * (plan.warps_per_bag - 1) < D // plan.vec
+
+
+@pytest.mark.parametrize("P,chunks", [(0, 0), (1, 1), (8, 1), (32, 1), (33, 2),
+                                      (42, 2), (64, 2), (65, 3)])
+def test_gather_pool_plan_splits_indices_into_chunks(P, chunks):
+    assert gp_module.launch_plan(128, 1, 0, 7808, P).chunks == chunks
+
+
+@pytest.mark.parametrize("D,N,P,plan", [
+    (64, 256, 8, (16, 1, 1, 1)),         # the serving path: 256 one-warp blocks
+    (128, 7808, 42, (16, 4, 1, 2)),      # m1_batch: 1,952 blocks of 4 bags
+    (128, 528, 42, (16, 2, 1, 2)),       # 264 blocks of 2 bags
+    (164, 7808, 42, (4, 2, 2, 2)),       # a 164-byte row: two warps a bag
+    (2048, 7808, 8, (16, 1, 16, 1)),     # 2 KB rows: a bag spans four 4-warp blocks
+])
+def test_gather_pool_plan_blocks(D, N, P, plan):
+    got = gp_module.launch_plan(D, 1, 0, N, P)
+    assert tuple(got) == plan
+    assert (got.bags_per_block * got.warps_per_bag <= gp_module.MAX_WARPS
+            or got.bags_per_block == 1)
+    assert -(-N // got.bags_per_block) >= gp_module.MIN_BLOCKS or got.bags_per_block == 1
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 16, 32])
+def test_cache_probe_plan_queries_per_warp(W):
+    big = cp_module.launch_plan(W, 128, 327_936)
+    assert big == (32, 32 // W, 4)
+    path = cp_module.launch_plan(W, 64, 2048)
+    assert path.probes_at_once == 32 // W
+    assert path.probes_at_once <= path.queries_per_warp <= 32
+    warps = -(-2048 // path.queries_per_warp)
+    assert warps >= cp_module.MIN_WARPS or path.queries_per_warp == path.probes_at_once
+
+
+@pytest.mark.parametrize("W,at_once", [(0, 32), (3, 8), (5, 4), (9, 2), (17, 1)])
+def test_cache_probe_plan_rounds_ways_up(W, at_once):
+    assert cp_module.launch_plan(W, 64, 1 << 20).probes_at_once == at_once
+
+
+@pytest.mark.parametrize("D,base,vec", [(128, 0, 4), (24, 0, 4), (6, 0, 2), (1, 0, 1),
+                                        (64, 8, 2), (64, 4, 1), (0, 0, 4)])
+def test_cache_probe_plan_vector_width(D, base, vec):
+    assert cp_module.launch_plan(8, D, 2048, base).vec == vec
+
+
+def test_cache_probe_plan_refuses_33_ways():
+    with pytest.raises(ValueError, match="ways"):
+        cp_module.launch_plan(33, 64, 2048)
