@@ -28,6 +28,28 @@ Phases, one JSON line each:
               gather of its indices, the median ``serve_batch`` wall time with
               the kernels and with the plain versions, and the profiler's
               device µs per call of each kernel inside the step.
+trace_path -- the trace-driven serving path (``serve_dlrm.build_trace_engine``,
+              ``DeviceServingEngine.serve_columnar``, ``serve_dlrm.
+              serve_trace``) at the paper's M1 inventory: the ``zipf_steady``
+              archetype over 61 user tables of 21,730,221 rows in all, cut to
+              one row width (D = 128 int8, 136 B with the header), batches of
+              32 queries densified to P = 64. (a) 512 queries through a kernel
+              engine and a plain engine (``use_kernels=False``) on the card,
+              batch by batch in turns, each kernel call held to its plain
+              version on that call's inputs: per-query ``sm_ios`` and
+              ``sm_time_us`` and the cache state equal, pooled within the
+              reference's columnar tolerance of each other and of
+              ``reference_pool``, each kernel launched once a batch (the
+              counters zeroed just before and read just after); (b) the
+              median ``serve_columnar`` wall per batch for both engines in
+              turns, ``dense_from_chunk``'s host ms, a profile of 8
+              batches (each kernel once a batch), and each kernel's kernel,
+              plain and library times and bound on one batch's inputs; (c) the same archetype cut
+              to ``table_bytes=4e8`` (2,172,995 rows, tables made with numpy)
+              on the card and on the CPU: ``sm_ios``, ``sm_time_us``, hit rate
+              and cache state equal, pooled within the tolerance; (d) a
+              ``TraceStream`` of 8,192 queries served in pieces of 2,048 on
+              the kernel engine: hit rate and latency percentiles.
 6. flash_decode -- the decode-attention kernel against its plain version:
               f32, bf16 and the serving path's f32 query over a bf16
               cache, at the shapes of ``tests/test_kernels.py``, the
@@ -88,6 +110,18 @@ SPIN_CYCLES = 1_000_000          # about 0.5 ms at the H100's clock
 # 61 user tables pooling 42 rows each, 128-byte rows (136 with scale and bias)
 M1_GATHER_POOL = dict(R=1 << 24, D=128, N=128 * 61, P=42)
 M1_CACHE_PROBE = dict(S=1 << 20, W=8, D=128, N=128 * 61 * 42)
+# trace_path: the zipf_steady archetype over the M1 inventory of the reference's
+# examples/serve_dlrm.py:75-81 (61 user tables, table_bytes 4e9), one row width
+TRACE_ARCHETYPE, TRACE_QUERIES, TRACE_BATCH, TRACE_DIM, TRACE_P = "zipf_steady", 512, 32, 128, 64
+TRACE_TABLE_BYTES, TRACE_ROWS = 4e9, 21_730_221
+TRACE_CUT_BYTES, TRACE_CUT_ROWS = 4e8, 2_172_995   # (c): card vs CPU
+TRACE_TIMED = 16                 # timed batches of phase trace_path (b)
+TRACE_STREAM_QUERIES, TRACE_STREAM_PIECE = 8192, 2048
+TRACE_BG_IOPS = 10_000.0
+# bags of 42-64 rows sum to tens, where float32 summation order moves the last
+# bits by more than 1e-5: the reference's tolerance for serve_columnar
+# (tests/test_sharded_engine.py:198)
+TRACE_POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def emit(obj) -> None:
@@ -391,14 +425,16 @@ def dlrm_kernel_times(torch, timer, gp_cases, cp_cases) -> dict:
                             "m1_batch": cache_probe_times(torch, timer, cp_cases[-1], 20)}}
 
 
-def kernel_entry(times, name) -> dict:
+def kernel_entry(times, name, trace_times) -> dict:
     """A DLRM kernel's timing keys of the ``kernels`` line: medians at the
-    path's shape, then at ``m1_batch``, beside the timer's floor."""
+    path's shape, then at ``m1_batch`` and on the trace path's inputs,
+    beside the timer's floor."""
     def medians(t):
         return {"ms": t["ms"]["median"], "plain_ms": t["plain_ms"]["median"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": (t["library_ms"] or {}).get("median")}
     return {**medians(times[name]["path"]), "m1_batch": medians(times[name]["m1_batch"]),
+            "trace_path": medians(trace_times[name]),
             "timer_floor_ms": times["timer_floor_ms"]["median"]}
 
 
@@ -455,6 +491,296 @@ def sdpa_call(torch, q, k, v, L):
     except TypeError as e:                     # a torch without enable_gqa
         return None, f"torch {torch.__version__} SDPA: {e}"
     return call, None
+
+
+def shadowed_dlrm_kernels(torch, ops, ref):
+    """Wrap the DLRM kernels' entries in ``ops`` so that each kernel call also
+    runs the plain version on the same inputs (no launch, so the counters
+    do not move). Returns (restore, check, last): ``check()`` raises if any
+    call disagreed and returns the largest difference of each kernel;
+    ``last`` holds each kernel's inputs of its last call, the probe's cache
+    state cloned (the fill updates it in place; nothing writes the store)."""
+    gp_call, cp_call = ops.embedding_gather_pool, ops.row_cache_probe
+    last = {}
+    worst = {"gather_pool": torch.zeros((), device="cuda"),
+             "cache_probe": torch.zeros((), device="cuda")}
+    bad = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def gather_pool(payload, scale, bias, indices, *, use_kernel=True):
+        out = gp_call(payload, scale, bias, indices, use_kernel=use_kernel)
+        if use_kernel:
+            last["gather_pool"] = (payload, scale, bias, indices)
+            want = ref.gather_pool_ref(payload, scale, bias, indices)
+            torch.maximum(worst["gather_pool"], (out - want).abs().max(),
+                          out=worst["gather_pool"])
+            bad.logical_or_(~torch.isclose(out, want, **GATHER_POOL_TOL).all())
+        return out
+
+    def cache_probe(*args, use_kernel=True):
+        vals, hit = cp_call(*args, use_kernel=use_kernel)
+        if use_kernel:
+            last["cache_probe"] = tuple(a.clone() for a in args)
+            vals_ref, hit_ref = ref.cache_probe_ref(*args)
+            torch.maximum(worst["cache_probe"], (vals - vals_ref).abs().max(),
+                          out=worst["cache_probe"])
+            bad.logical_or_((hit != hit_ref).any())
+            bad.logical_or_(~torch.isclose(vals, vals_ref, **CACHE_PROBE_TOL).all())
+        return vals, hit
+
+    def restore():
+        ops.embedding_gather_pool, ops.row_cache_probe = gp_call, cp_call
+
+    def check():
+        if bool(bad):
+            raise AssertionError(f"a DLRM kernel call on the trace path disagreed "
+                                 f"with its plain version: {worst}")
+        return {k: float(v) for k, v in worst.items()}
+    ops.embedding_gather_pool, ops.row_cache_probe = gather_pool, cache_probe
+    return restore, check, last
+
+
+def trace_kernel_times(torch, timer, got) -> dict:
+    """Kernel, plain and library times of both DLRM kernels on the inputs
+    one batch of the trace path gave them (``got``), with their bounds, and two probes
+    of what holds ``gather_pool`` there: the same call with every sentinel
+    slot (a hit or a padded position) sent to a random one of the store's
+    first 65,536 rows instead (8.9 MB, which L2 holds after the first
+    touch), and with every slot the sentinel."""
+    from repro_torch.kernels.gather_pool import gather_pool
+    payload, scale, bias, idx = got["gather_pool"]
+    sentinel = payload.shape[0] - 1
+    g = torch.Generator(device="cuda").manual_seed(16)
+    spread = torch.where(idx == sentinel,
+                         torch.randint(0, min(1 << 16, sentinel), idx.shape, generator=g,
+                                       device="cuda", dtype=torch.int32), idx)
+    same = torch.full_like(idx, sentinel)
+    return {"gather_pool": gather_pool_times(torch, timer, ("trace_path", *got["gather_pool"]),
+                                             20),
+            "gather_pool_access": {
+                "sentinel_slots": int((idx == sentinel).sum()),
+                "distinct_rows": int(idx.unique().numel()),
+                "spread_l2_ms": timer.ms(lambda: gather_pool(payload, scale, bias, spread),
+                                         20),
+                "all_sentinel_ms": timer.ms(lambda: gather_pool(payload, scale, bias, same),
+                                            20)},
+            "cache_probe": cache_probe_times(torch, timer, ("trace_path", *got["cache_probe"]),
+                                             20)}
+
+
+def pool_gap(np, a, b) -> float:
+    """The largest ``|a - b| / (atol + rtol |b|)`` under ``TRACE_POOL_TOL``:
+    at most 1 is within the tolerance."""
+    tol = TRACE_POOL_TOL
+    return float((np.abs(a - b) / (tol["atol"] + tol["rtol"] * np.abs(b))).max())
+
+
+def trace_path(torch, np, timer, smi) -> dict:
+    """Phase ``trace_path``; returns the launches of its main run (a), each
+    kernel's largest difference from its plain version there, its device µs
+    per call and its times at the path's shapes."""
+    from repro_torch import serve_dlrm
+    from repro_torch.core.io_sim import DEVICES
+    from repro_torch.kernels import ops, ref
+    from repro_torch.runtime.engine import (DeviceServingEngine, EngineConfig,
+                                            dense_from_chunk)
+    from repro_torch.workloads import TraceStream, build_trace
+
+    B, D, name = TRACE_BATCH, TRACE_DIM, TRACE_ARCHETYPE
+    kernel_names = ("gather_pool", "cache_probe")
+    t_phase = time.perf_counter()
+    spec = serve_dlrm.m1_spec(name, queries=TRACE_QUERIES, table_bytes=TRACE_TABLE_BYTES)
+    t0 = time.perf_counter()
+    trace = build_trace(spec)
+    build_trace_s = time.perf_counter() - t0
+    users = [m for m in trace.all_metas() if m.kind == "user"]
+    rows = sum(m.num_rows for m in users)
+    if (len(users), rows) != (61, TRACE_ROWS):
+        raise AssertionError(f"M1 inventory: {len(users)} tables, {rows} rows")
+    keys = trace.queries.group().keys_g()
+
+    # (a) kernel engine vs plain engine on the card, batch by batch in turns
+    t0 = time.perf_counter()
+    kern = serve_dlrm.build_trace_engine(spec, D, seed=0, torch_device="cuda",
+                                         cfg=EngineConfig())
+    plain = serve_dlrm.build_trace_engine(spec, D, seed=0, torch_device="cuda",
+                                          cfg=EngineConfig(use_kernels=False))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    for attr in ("payload", "scale", "bias"):
+        if not torch.equal(getattr(kern, attr), getattr(plain, attr)):
+            raise AssertionError(f"seeded stores differ in {attr}")
+    T = len(kern.table_ids)
+    chunks = list(trace.chunks(B))
+    restore, check, last = shadowed_dlrm_kernels(torch, ops, ref)
+    gap = {"kernel_vs_plain": 0.0, "kernel_vs_reference_pool": 0.0,
+           "plain_vs_reference_pool": 0.0}
+    max_abs = 0.0
+    shapes = set()
+    ops.reset_launch_counts()
+    try:
+        for i, ch in enumerate(chunks):
+            pk, tk, ik = kern.serve_columnar(ch.columnar, TRACE_BG_IOPS)
+            pp, tp, ip = plain.serve_columnar(ch.columnar, TRACE_BG_IOPS)
+            if ik.tolist() != ip.tolist() or tk.tolist() != tp.tolist():
+                raise AssertionError(f"batch {i}: sm_ios or sm_time_us differ "
+                                     "between the kernel and plain engines")
+            idx, valid = dense_from_chunk(ch.columnar, kern.table_slot, T)
+            shapes.add(idx.shape)
+            want = kern.reference_pool(idx, valid)
+            if pk.shape != (B, T, D) or not np.isfinite(pk).all():
+                raise AssertionError(f"batch {i}: pooled {pk.shape} not finite")
+            for key, (a, b) in {"kernel_vs_plain": (pk, pp),
+                                "kernel_vs_reference_pool": (pk, want),
+                                "plain_vs_reference_pool": (pp, want)}.items():
+                gap[key] = max(gap[key], pool_gap(np, a, b))
+            max_abs = max(max_abs, float(np.abs(pk - pp).max()),
+                          float(np.abs(pk - want).max()))
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = ops.launch_counts()
+    kernel_err = check()
+    if any(launches[k] != len(chunks) for k in kernel_names):
+        raise AssertionError(f"trace path: {launches} launches over {len(chunks)} "
+                             "batches, want each DLRM kernel once a batch")
+    if max(gap.values()) > 1.0:
+        raise AssertionError(f"trace path pooled outside {TRACE_POOL_TOL}: {gap}")
+    if shapes != {(B, T, TRACE_P)}:
+        raise AssertionError(f"trace path blocks {shapes}, want ({B}, {T}, {TRACE_P})")
+    for k, v in kern.state.items():
+        if not torch.equal(v, plain.state[k]):
+            raise AssertionError(f"cache state {k} differs between the kernel "
+                                 "and plain engines")
+    hit_rate_a = kern.hit_rate
+    emit({"phase": "trace_path", "part": "a_kernel_vs_plain", "archetype": name,
+          "queries": len(trace), "batch": B, "batches": len(chunks),
+          "tables": T, "rows": rows, "dim": D, "block": [B, T, TRACE_P],
+          "keys": int(len(keys)), "distinct_keys": int(len(np.unique(keys))),
+          "valid_positions": int(trace.queries.seg_offsets[-1]),
+          "block_positions": len(chunks) * B * T * TRACE_P,
+          "reduced": ["one row width for every table: D = 128 int8 (136 B with "
+                      "the header) instead of 90-172 B a table"],
+          "cache_sets": kern.cache.geo.num_sets, "cache_ways": kern.cache.geo.ways,
+          "launches": launches, "hit_rate": hit_rate_a,
+          "sm_ios": int(kern.stats.sm_ios), "kernel_vs_plain_per_call": kernel_err,
+          "pooled_max_abs": max_abs, "pooled_gap_over_tolerance": gap,
+          "tolerance": TRACE_POOL_TOL, "build_trace_s": build_trace_s,
+          "setup_s": setup_s})
+
+    # (b) timing: a longer trace of the same inventory (other draws: the RNG
+    # stream shifts with the query count), both engines in turns, then a
+    # profile of 8 batches of each
+    timing = list(build_trace(serve_dlrm.m1_spec(
+        name, queries=B * (TRACE_TIMED + 8), table_bytes=TRACE_TABLE_BYTES)).chunks(B))
+    walls = {"kernels": [], "plain": []}
+    dense_ms = []
+    for i, ch in enumerate(timing[:TRACE_TIMED]):
+        t0 = time.perf_counter()
+        dense_from_chunk(ch.columnar, kern.table_slot, T)
+        dense_ms.append((time.perf_counter() - t0) * 1e3)
+        for label, eng in (("kernels", kern), ("plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.serve_columnar(ch.columnar, TRACE_BG_IOPS)
+            if i >= 2:                         # first batches warm up
+                walls[label].append((time.perf_counter() - t0) * 1e3)
+    wall_ms = {k: statistics.median(v) for k, v in walls.items()}
+    prof = {label: device_profile(
+                torch, lambda eng=eng: [eng.serve_columnar(ch.columnar, TRACE_BG_IOPS)
+                                        for ch in timing[TRACE_TIMED:]], 8,
+                named=kernel_names)
+            for label, eng in (("kernels", kern), ("plain", plain))}
+    for label, p in prof.items():             # no device events: not measured
+        p["idle_share"] = (1.0 - p["device_busy_us"] / (wall_ms[label] * 1e3)
+                           if p["device_ops"] else None)
+    named = prof["kernels"]["ops_named"]
+    if any(named[k] != 1 for k in kernel_names):
+        raise AssertionError(f"serve_columnar profile: {named} kernels per batch, "
+                             "want one each")
+    device_us = {k: prof["kernels"]["us_named"][k] / named[k] for k in kernel_names}
+    times = trace_kernel_times(torch, timer, last)    # run (a)'s last batch
+    del last
+    emit({"phase": "trace_path", "part": "b_timing", "card": smi,
+          "serve_columnar_ms_median": wall_ms,
+          "serve_columnar_ms_min": {k: min(v) for k, v in walls.items()},
+          "serve_columnar_batches": len(walls["kernels"]),
+          "dense_from_chunk_ms_median": statistics.median(dense_ms),
+          "device_us_per_call": device_us, "kernel_times": times,
+          "kernel_shapes": {
+              "gather_pool": {"N": B * T, "P": TRACE_P, "D": D,
+                              "R": int(kern.payload.shape[0])},
+              "cache_probe": {"N": B * T * TRACE_P, "S": kern.cache.geo.num_sets,
+                              "W": kern.cache.geo.ways, "D": D}},
+          "profile": prof})
+
+    # (c) the 4e8 cut on the card and on the CPU, tables made with numpy
+    del plain
+    torch.cuda.empty_cache()
+    cut = serve_dlrm.m1_spec(name, queries=TRACE_QUERIES, table_bytes=TRACE_CUT_BYTES)
+    cut_trace = build_trace(cut)
+    rng = np.random.default_rng(7)
+    tables = {m.table_id: rng.standard_normal((m.num_rows, D), dtype=np.float32)
+              for m in cut_trace.all_metas() if m.kind == "user"}
+    cut_rows = sum(t.shape[0] for t in tables.values())
+    if cut_rows != TRACE_CUT_ROWS:
+        raise AssertionError(f"the 4e8 cut has {cut_rows} rows")
+    res, engines, run_s = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        engines[dev] = DeviceServingEngine(tables, DEVICES["nand_flash"],
+                                           EngineConfig(), torch_device=dev)
+        res[dev] = serve_dlrm.serve_trace(engines[dev], cut_trace, B, TRACE_BG_IOPS,
+                                          keep_pooled=True)
+        run_s[dev] = time.perf_counter() - t0
+    del tables
+    card, host = engines["cuda"], engines["cpu"]
+    for f in ("sm_ios", "sm_time_us", "latency_us"):
+        if getattr(res["cuda"], f).tolist() != getattr(res["cpu"], f).tolist():
+            raise AssertionError(f"4e8 cut: {f} differs between card and CPU")
+    if card.hit_rate != host.hit_rate:
+        raise AssertionError("4e8 cut: hit rate differs between card and CPU")
+    for k, v in card.state.items():
+        if not torch.equal(v.cpu(), host.state[k]):
+            raise AssertionError(f"4e8 cut: cache state {k} differs between card and CPU")
+    cut_gap = max(pool_gap(np, a, b) for a, b in zip(res["cuda"].pooled, res["cpu"].pooled))
+    cut_abs = max(float(np.abs(a - b).max())
+                  for a, b in zip(res["cuda"].pooled, res["cpu"].pooled))
+    if cut_gap > 1.0:
+        raise AssertionError(f"4e8 cut: pooled card vs CPU {cut_abs} outside {TRACE_POOL_TOL}")
+    emit({"phase": "trace_path", "part": "c_card_vs_cpu", "table_bytes": TRACE_CUT_BYTES,
+          "rows": cut_rows, "batches": res["cuda"].chunks,
+          "hit_rate": card.hit_rate, "sm_ios": int(res["cuda"].sm_ios.sum()),
+          "pooled_max_abs": cut_abs, "pooled_gap_over_tolerance": cut_gap,
+          "card_s": run_s["cuda"], "cpu_s": run_s["cpu"]})
+    del card, host, engines, res
+    torch.cuda.empty_cache()
+
+    # (d) a long stream on the kernel engine, in bounded memory
+    before = (int(kern.state["hits"]), int(kern.state["misses"]))
+    stream = TraceStream(serve_dlrm.m1_spec(name, queries=TRACE_STREAM_QUERIES,
+                                            table_bytes=TRACE_TABLE_BYTES),
+                         piece=TRACE_STREAM_PIECE)
+    t0 = time.perf_counter()
+    out = serve_dlrm.serve_trace(kern, stream, B, TRACE_BG_IOPS)
+    stream_s = time.perf_counter() - t0
+    hits = int(kern.state["hits"]) - before[0]
+    misses = int(kern.state["misses"]) - before[1]
+    if len(out.sm_ios) != TRACE_STREAM_QUERIES or not np.isfinite(out.latency_us).all():
+        raise AssertionError(f"stream served {len(out.sm_ios)} queries")
+    p50, p95, p99 = np.percentile(out.latency_us, [50, 95, 99])
+    sm50, sm95, sm99 = np.percentile(out.sm_time_us, [50, 95, 99])
+    emit({"phase": "trace_path", "part": "d_stream", "queries": len(out.sm_ios),
+          "piece": TRACE_STREAM_PIECE, "batches": out.chunks,
+          "hit_rate": hits / (hits + misses), "sm_ios": int(out.sm_ios.sum()),
+          "latency_us_p50_p95_p99": [float(p50), float(p95), float(p99)],
+          "sm_time_us_p50_p95_p99": [float(sm50), float(sm95), float(sm99)],
+          "item_time_us": kern.cfg.item_time_us, "stream_s": stream_s,
+          "phase_s": time.perf_counter() - t_phase})
+    del kern
+    torch.cuda.empty_cache()
+    return {"launches": launches, "device_us": device_us, "err": kernel_err,
+            "times": times}
 
 
 def lm_phases(torch, np, timer, smi) -> dict:
@@ -706,7 +1032,7 @@ def main() -> int:
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi, "torch_name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda})
+          "cuda": torch.version.cuda, "numpy": np.__version__})
 
     # 2. build
     t0 = time.perf_counter()
@@ -854,7 +1180,11 @@ def main() -> int:
                                  for k in ("gather_pool", "cache_probe")}})
 
     del gp_cases, cp_cases, probed             # m1_batch holds about 6.5 GB
+    del model, engine, model_cpu, engine_cpu, engine_plain
     torch.cuda.empty_cache()
+
+    # trace_path: trace-driven serving at the M1 inventory
+    tr = trace_path(torch, np, timer, smi)
 
     # 6-8. the LM decode path and its flash_decode kernel
     fd = lm_phases(torch, np, timer, smi)
@@ -863,15 +1193,23 @@ def main() -> int:
         {"name": "gather_pool", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_pool.cu",
          "replaces": "src/repro/kernels/gather_pool.py:57",
-         "launches": launches["gather_pool"],
-         "max_abs_err": err["gather_pool"], **kernel_entry(times, "gather_pool"),
-         "device_us_per_call_in_step": device_us["gather_pool"]},
+         "launches": launches["gather_pool"] + tr["launches"]["gather_pool"],
+         "launches_by_path": {"dlrm_uniform": launches["gather_pool"],
+                              "trace_path": tr["launches"]["gather_pool"]},
+         "max_abs_err": max(err["gather_pool"], tr["err"]["gather_pool"]),
+         **kernel_entry(times, "gather_pool", tr["times"]),
+         "device_us_per_call_in_step": device_us["gather_pool"],
+         "device_us_per_call_trace_path": tr["device_us"]["gather_pool"]},
         {"name": "cache_probe", "route": "cuda",
          "source": "src/repro_torch/csrc/cache_probe.cu",
          "replaces": "src/repro/kernels/cache_probe.py:58",
-         "launches": launches["cache_probe"],
-         "max_abs_err": err["cache_probe"], **kernel_entry(times, "cache_probe"),
-         "device_us_per_call_in_step": device_us["cache_probe"]},
+         "launches": launches["cache_probe"] + tr["launches"]["cache_probe"],
+         "launches_by_path": {"dlrm_uniform": launches["cache_probe"],
+                              "trace_path": tr["launches"]["cache_probe"]},
+         "max_abs_err": max(err["cache_probe"], tr["err"]["cache_probe"]),
+         **kernel_entry(times, "cache_probe", tr["times"]),
+         "device_us_per_call_in_step": device_us["cache_probe"],
+         "device_us_per_call_trace_path": tr["device_us"]["cache_probe"]},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:88", **fd},

@@ -4,8 +4,9 @@ The port's own copy of the reference's config system
 (``src/repro/configs/base.py``): every architecture is a frozen
 ``ModelConfig``, the four canonical input shapes are ``ShapeConfig``s, and
 ``ModelConfig.reduced()`` gives the tiny same-family config the CPU tests
-run. ``tests/test_torch_transformer.py`` holds the copy to the original
-field by field.
+run; ``DLRMConfig`` describes the paper's own models (Table 6).
+``tests/test_torch_transformer.py`` and ``tests/test_torch_workloads.py``
+hold the copy to the original field by field.
 """
 from __future__ import annotations
 
@@ -203,11 +204,55 @@ class ModelConfig:
         return dataclasses.replace(self, **scale)
 
 
+# ---------------------------------------------------------------------------
+# DLRM config (the paper's own model family, Table 6)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DLRMConfig:
+    """Paper Table 6 model description.
+
+    Embedding dims in the paper are *bytes per quantized row*; we model rows as
+    int8 row-wise-quantized payloads of ``dim_bytes - 8`` elements (8 bytes of
+    fp32 scale+bias header, matching §4.1.1 / footnote 4).
+    """
+
+    name: str
+    num_params: int  # total (reported)
+    size_gb: float
+    num_user_tables: int
+    user_dim_bytes: Tuple[int, int]  # [min, max]
+    user_avg_pool: int
+    num_item_tables: int
+    item_dim_bytes: Tuple[int, int]
+    item_avg_pool: int
+    user_batch: int
+    item_batch: int
+    num_mlp_layers: int
+    avg_mlp_size: int
+    qps_target: int = 0
+
+    def reduced(self) -> "DLRMConfig":
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            size_gb=0.001,
+            num_user_tables=4,
+            num_item_tables=3,
+            num_mlp_layers=3,
+            avg_mlp_size=32,
+            item_batch=8,
+        )
+
+
 REGISTRY: dict = {}
+DLRM_REGISTRY: dict = {}
 
 
-def register(cfg: ModelConfig) -> ModelConfig:
-    REGISTRY[cfg.name] = cfg
+def register(cfg):
+    reg = DLRM_REGISTRY if isinstance(cfg, DLRMConfig) else REGISTRY
+    reg[cfg.name] = cfg
     return cfg
 
 
@@ -215,6 +260,10 @@ def get_config(name: str) -> ModelConfig:
     if name in REGISTRY:
         return REGISTRY[name]
     raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
+
+
+def get_dlrm_config(name: str) -> DLRMConfig:
+    return DLRM_REGISTRY[name]
 
 
 def list_archs() -> Sequence[str]:

@@ -16,6 +16,10 @@ serves a whole ``[batch, tables, pooling]`` index block on the torch device:
 The pooled output is the hit-side pool plus the miss-side pool. Only the
 ``[B, T]`` miss counts and the pooled block come back to the host, where the
 analytic ``IOEngine`` prices each query's IO under Eq. 3.
+
+``serve_columnar`` is the trace plane's entry: a columnar (CSR) chunk of a
+workload trace is densified on the host (``dense_from_chunk``) into a
+ragged, padded ``[B, T, P]`` block with a valid mask and served as above.
 """
 from __future__ import annotations
 
@@ -27,10 +31,44 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.cache import TorchRowCache, dual_cache_geometry
+from repro_torch.core.columnar import ColumnarChunk
 from repro_torch.core.io_sim import DeviceModel, IOEngine, IOQueueConfig
 from repro_torch.core.quant import quantize_rows, row_bytes
 from repro_torch.core.sdm import QueryStats
 from repro_torch.kernels import ops
+
+
+def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
+                     num_tables: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Columnar (CSR) chunk -> dense ``[B, T, P]`` index block + valid mask.
+
+    ``P`` is the chunk's max pooling length rounded up to a power of two
+    (few distinct shapes across chunks); absent/padded positions get index 0
+    with ``valid=False`` -- the device step routes them to the zero sentinel
+    row so they contribute nothing and cost no IO. A numpy pass on the host,
+    as the reference's.
+    """
+    B = chunk.n_queries
+    views = chunk.table_views()
+    P = 1
+    for v in views:
+        if len(v.lens):
+            P = max(P, int(v.lens.max()))
+    P = 1 << (P - 1).bit_length()
+    idx = np.zeros((B, num_tables, P), np.int32)
+    valid = np.zeros((B, num_tables, P), bool)
+    for v in views:
+        t = table_slot[v.tid]
+        nseg = len(v.qid)
+        if nseg == 0 or not len(v.vals):
+            continue
+        seg = np.repeat(np.arange(nseg, dtype=np.int64), v.lens)
+        pos = (np.arange(len(v.vals), dtype=np.int64)
+               - np.repeat(v.eoff[:-1], v.lens))
+        b = v.qid[seg]
+        idx[b, t, pos] = v.vals
+        valid[b, t, pos] = True
+    return idx, valid
 
 
 @dataclasses.dataclass
@@ -169,6 +207,22 @@ class DeviceServingEngine:
         pooled, miss = self._step(torch.from_numpy(idx).to(dev),
                                   torch.from_numpy(valid).to(dev))
         return pooled.cpu().numpy(), self._account(miss.cpu().numpy(), bg_iops)
+
+    def serve_columnar(self, chunk: ColumnarChunk, bg_iops: float = 0.0
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Serve a columnar (CSR) chunk through the device step. Returns
+        ``(pooled [B, T, dim] f32, sm_time_us [B] f64, sm_ios [B] i64)`` with
+        T in ``table_ids`` order (tables a query does not touch pool to
+        zero)."""
+        T = len(self.table_ids)
+        if chunk.n_queries == 0:
+            return (np.zeros((0, T, self.dim), np.float32),
+                    np.zeros(0, np.float64), np.zeros(0, np.int64))
+        idx, valid = dense_from_chunk(chunk, self.table_slot, T)
+        pooled, stats = self.serve_batch(idx, bg_iops, valid=valid)
+        return (pooled,
+                np.array([s.sm_time_us for s in stats], np.float64),
+                np.array([s.sm_ios for s in stats], np.int64))
 
     def _account(self, miss: np.ndarray, bg_iops: float) -> List[QueryStats]:
         """Per-query IO + Eq. 3 latency accounting for a ``[B, T]`` block of

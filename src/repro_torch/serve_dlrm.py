@@ -7,22 +7,35 @@ served batch by batch through ``DeviceServingEngine`` (HBM row cache,
 batch's first query then scores an item batch with ``DLRM.serve_query``
 (B_U = 1, Eq. 2). Weights and traffic (uniform random rows) are seeded.
 
+With ``--archetype`` it serves a workload trace instead: the archetype's
+traffic over the paper's M1 inventory (61 user tables, Table 6 statistics,
+``--table-bytes`` in all), one float table of ``--dim`` per user table,
+chunk by chunk through ``DeviceServingEngine.serve_columnar``. The trace
+path scores no items; per-query latency is Eq. 3's ``max(item_time_us,
+sm_time_us)``.
+
 Run: PYTHONPATH=src python -m repro_torch.serve_dlrm \
          [--queries 128 --batch 32 --item-batch 50 --device cuda]
+     PYTHONPATH=src python -m repro_torch.serve_dlrm --archetype zipf_steady \
+         [--queries 512 --table-bytes 4e9 --dim 128 --stream 0 --device cuda]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.io_sim import DEVICES
 from repro_torch.core.sdm import QueryStats
 from repro_torch.models.dlrm import DLRM, DLRMArch
 from repro_torch.runtime.engine import DeviceServingEngine, EngineConfig
+from repro_torch.workloads import (ARCHETYPES, Trace, TraceStream,
+                                   WorkloadSpec, build_trace,
+                                   tenant_table_metas)
 
 
 @dataclasses.dataclass
@@ -78,6 +91,97 @@ def serve(model: DLRM, engine: DeviceServingEngine, traffic: List[dict], *,
     return results
 
 
+# -- the trace path --------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TraceResult:
+    latency_us: np.ndarray        # [Q] f64, Eq. 3: max(item_time_us, sm_time_us)
+    sm_time_us: np.ndarray        # [Q] f64
+    sm_ios: np.ndarray            # [Q] i64
+    chunks: int                   # serve_columnar calls
+    pooled: Optional[List[np.ndarray]] = None   # [B, T, dim] per chunk
+
+
+def m1_spec(name: str, *, queries: int, table_bytes: float = 4e9) -> WorkloadSpec:
+    """Archetype ``name`` with every tenant on the paper's M1 inventory (61
+    user and 30 item tables, Table 6 statistics, ``table_bytes`` in all), as
+    the reference's ``examples/serve_dlrm.py`` builds its traffic."""
+    spec = ARCHETYPES[name]
+    return dataclasses.replace(
+        spec, num_queries=queries,
+        tenants=tuple(dataclasses.replace(
+            t, model="dlrm-m1", num_user_tables=61, num_item_tables=30,
+            table_bytes=table_bytes) for t in spec.tenants))
+
+
+def build_trace_engine(spec: WorkloadSpec, dim: int, *, seed: int = 0,
+                       torch_device="cuda",
+                       cfg: Optional[EngineConfig] = None) -> DeviceServingEngine:
+    """An engine over one ``[num_rows, dim]`` float table per user table of
+    ``spec``'s inventory (every tenant's), on the Nand SM device model. The
+    tables come from a generator seeded with ``seed`` on ``torch_device`` and
+    are freed once quantized into the engine's store."""
+    dev = resolve_device(torch_device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tables = {m.table_id: torch.randn((m.num_rows, dim), generator=gen,
+                                      device=dev)
+              for ms in tenant_table_metas(spec).values()
+              for m in ms if m.kind == "user"}
+    return DeviceServingEngine(tables, DEVICES["nand_flash"], cfg,
+                               torch_device=dev)
+
+
+def serve_trace(engine: DeviceServingEngine,
+                trace: Union[Trace, TraceStream], chunk: int = 32,
+                bg_iops: float = 10_000.0, *,
+                keep_pooled: bool = False) -> TraceResult:
+    """Serve a trace (or a stream, piece by piece, in bounded memory) in
+    arrival-order chunks of ``chunk`` queries through ``serve_columnar``.
+    A stream's pieces must hold whole chunks, so it is served in the same
+    chunks as its materialized trace."""
+    if isinstance(trace, TraceStream):
+        if trace.piece % chunk:
+            raise ValueError(f"stream piece {trace.piece} is not a multiple "
+                             f"of chunk {chunk}")
+        parts = (p.trace for p in trace.pieces())
+    else:
+        parts = (trace,)
+    sm_t, ios, pooled = [], [], []
+    with torch.no_grad():
+        for part in parts:
+            for ch in part.chunks(chunk):
+                p, t, n = engine.serve_columnar(ch.columnar, bg_iops)
+                sm_t.append(t)
+                ios.append(n)
+                if keep_pooled:
+                    pooled.append(p)
+    sm_time = np.concatenate(sm_t) if sm_t else np.zeros(0, np.float64)
+    return TraceResult(np.maximum(engine.cfg.item_time_us, sm_time), sm_time,
+                       np.concatenate(ios) if ios else np.zeros(0, np.int64),
+                       len(sm_t), pooled if keep_pooled else None)
+
+
+def _main_trace(args) -> None:
+    spec = m1_spec(args.archetype, queries=args.queries,
+                   table_bytes=args.table_bytes)
+    engine = build_trace_engine(spec, args.dim, seed=0,
+                                torch_device=args.device)
+    trace = (TraceStream(spec, piece=args.stream) if args.stream
+             else build_trace(spec))
+    res = serve_trace(engine, trace, args.batch)
+    print(f"served {len(res.sm_ios)} {args.archetype} queries (batch="
+          f"{args.batch}, {res.chunks} chunks) over {len(engine.table_ids)} "
+          f"tables, {int(engine.rows_per_table.sum())} rows of {args.dim} on "
+          f"{engine.torch_device}")
+    if len(res.sm_ios):
+        p50, p95, p99 = np.percentile(res.latency_us, [50, 95, 99])
+        print(f"  p50/p95/p99 latency: {p50:6.0f} / {p95:6.0f} / {p99:6.0f} us "
+              f"(Eq. 3, analytic SM model)")
+        print(f"  SM IOs:              {int(res.sm_ios.sum())}")
+    print(f"  device engine:       hit rate {engine.hit_rate:.4f}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", type=int, default=128)
@@ -86,7 +190,20 @@ def main(argv=None) -> None:
     ap.add_argument("--rows", type=int, default=100_000,
                     help="rows per embedding table (DLRMArch default 100000)")
     ap.add_argument("--device", default="cuda", help="torch device")
+    ap.add_argument("--archetype", choices=sorted(ARCHETYPES),
+                    help="serve this workload trace over the M1 inventory "
+                         "instead of uniform rows")
+    ap.add_argument("--table-bytes", type=float, default=4e9,
+                    help="trace path: bytes of the M1 inventory")
+    ap.add_argument("--dim", type=int, default=128,
+                    help="trace path: row width of every table")
+    ap.add_argument("--stream", type=int, default=0, metavar="PIECE",
+                    help="trace path: generate and serve the trace as a "
+                         "stream in pieces of PIECE queries (0: whole)")
     args = ap.parse_args(argv)
+    if args.archetype:
+        _main_trace(args)
+        return
 
     arch = DLRMArch(user_tables=(args.rows,) * 8, item_tables=(args.rows,) * 4)
     model, engine = build(arch, seed=0, torch_device=args.device)

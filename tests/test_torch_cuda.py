@@ -2,6 +2,8 @@
 against their plain PyTorch versions and the same run on the CPU. Marked
 ``cuda``: each test skips when no GPU is present. Run on a GPU machine with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,9 @@ from repro_torch.kernels.cache_probe import cache_probe
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.gather_pool import gather_pool
 from repro_torch.models.transformer import init_cache
-from repro_torch.runtime.engine import DeviceServingEngine, EngineConfig
+from repro_torch.runtime.engine import (DeviceServingEngine, EngineConfig,
+                                        dense_from_chunk)
+from repro_torch.workloads import ARCHETYPES, build_trace
 
 pytestmark = pytest.mark.cuda
 
@@ -256,3 +260,40 @@ def test_lm_decode_on_card_matches_cpu(cuda):
     want = serve_lm.decode(host, init_cache(cfg, 3, 37, dtype=torch.float32, device="cpu"),
                            tokens)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name,P", [("zipf_steady", 64), ("diurnal", 128)])
+def test_serve_columnar_on_card_matches_cpu(cuda, name, P):
+    """A small archetype trace (3 user tables of the M1 statistics, 3e5 bytes)
+    served chunk by chunk on the card and on the CPU: ``sm_ios``,
+    ``sm_time_us``, hit rate and cache state equal, pooled within the
+    reference's columnar tolerance. The diurnal trace's pooling mix pads P to
+    128, two of ``gather_pool``'s 64-row tiles."""
+    spec = ARCHETYPES[name]
+    spec = dataclasses.replace(spec, num_queries=48, tenants=tuple(
+        dataclasses.replace(t, table_bytes=3e5, num_user_tables=3,
+                            num_item_tables=1) for t in spec.tenants))
+    trace = build_trace(spec)
+    rng = np.random.default_rng(4)
+    tables = {m.table_id: rng.standard_normal((m.num_rows, 32)).astype(np.float32)
+              for m in trace.all_metas() if m.kind == "user"}
+    cfg = EngineConfig(hbm_cache_bytes=1 << 14)
+    card = DeviceServingEngine(tables, DEVICES["nand_flash"], cfg, torch_device=cuda)
+    host = DeviceServingEngine(tables, DEVICES["nand_flash"], cfg, torch_device="cpu")
+    ops.reset_launch_counts()
+    chunks = list(trace.chunks(16))
+    for ch in chunks:
+        idx, valid = dense_from_chunk(ch.columnar, card.table_slot, 3)
+        assert idx.shape == (16, 3, P)
+        pc, tc, ic = card.serve_columnar(ch.columnar, 1e4)
+        ph, th, ih = host.serve_columnar(ch.columnar, 1e4)
+        np.testing.assert_array_equal(ic, ih)
+        np.testing.assert_array_equal(tc, th)
+        np.testing.assert_allclose(pc, ph, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(pc, card.reference_pool(idx, valid),
+                                   rtol=1e-5, atol=1e-5)
+    counts = ops.launch_counts()
+    assert counts["gather_pool"] == counts["cache_probe"] == len(chunks)
+    assert card.hit_rate == host.hit_rate and 0.0 < card.hit_rate < 1.0
+    for k, v in card.state.items():
+        assert torch.equal(v.cpu(), host.state[k]), k
