@@ -50,6 +50,24 @@ trace_path -- the trace-driven serving path (``serve_dlrm.build_trace_engine``,
               and cache state equal, pooled within the tolerance; (d) a
               ``TraceStream`` of 8,192 queries served in pieces of 2,048 on
               the kernel engine: hit rate and latency percentiles.
+sharded_path -- the sharded serving engine (``ShardedServingEngine`` through
+              ``serve_dlrm.build_trace_engine(shards=n, layout=...)``) over
+              trace_path's M1 trace, every shard on the one card through an
+              explicit device list (so its times measure per-shard overhead,
+              not scale-out). (a) Each layout at 8 shards, a kernel and a
+              plain engine batch by batch in turns over the 512 queries,
+              every kernel call shadowed by its plain version: per-query
+              ``sm_ios`` and ``sm_time_us`` and each shard's cache state
+              equal after every batch, pooled within the columnar tolerance
+              of ``reference_pool``, each kernel launched 8 times a batch;
+              (b) both layouts at 1, 2, 4 and 8 shards beside the
+              single-device engine: 1 shard equal to it in everything, every
+              count's cold first batch equal to it in per-query ``sm_ios``;
+              hit rate, ``sm_ios``, the store's bytes, the median
+              ``serve_columnar`` wall and a profile of 8 more batches; (c)
+              the 4e8 cut at 4 shards on the card and on the CPU, 8 batches:
+              ``sm_ios``, ``sm_time_us``, hit rate and each shard's cache
+              state equal, pooled within the tolerance.
 6. flash_decode -- the decode-attention kernel against its plain version:
               f32, bf16 and the serving path's f32 query over a bf16
               cache, at the shapes of ``tests/test_kernels.py``, the
@@ -122,6 +140,12 @@ TRACE_BG_IOPS = 10_000.0
 # bits by more than 1e-5: the reference's tolerance for serve_columnar
 # (tests/test_sharded_engine.py:198)
 TRACE_POOL_TOL = dict(rtol=1e-5, atol=1e-5)
+# sharded_path: trace_path's M1 trace through the sharded engine, the shards
+# sharing the one card through an explicit device list
+SHARD_LAYOUTS, SHARD_COUNTS = ("row", "table"), (1, 2, 4, 8)
+SHARD_CHECKED = 8                # shards of (a), kernel vs plain engine
+SHARD_CUT, SHARD_CUT_BATCHES = 4, 8   # (c): shards and batches, card vs CPU
+SHARD_PROFILED = 8               # profiled batches of (b)
 
 
 def emit(obj) -> None:
@@ -319,7 +343,7 @@ def device_profile(torch, run, nb: int, named=()):
     ``named``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:   # device events only
         run()
         torch.cuda.synchronize()
     by_name = {}
@@ -532,8 +556,8 @@ def shadowed_dlrm_kernels(torch, ops, ref):
 
     def check():
         if bool(bad):
-            raise AssertionError(f"a DLRM kernel call on the trace path disagreed "
-                                 f"with its plain version: {worst}")
+            raise AssertionError(f"a DLRM kernel call disagreed with its plain "
+                                 f"version: {worst}")
         return {k: float(v) for k, v in worst.items()}
     ops.embedding_gather_pool, ops.row_cache_probe = gather_pool, cache_probe
     return restore, check, last
@@ -783,6 +807,232 @@ def trace_path(torch, np, timer, smi) -> dict:
             "times": times}
 
 
+def shard_state_diff(torch, a, b) -> list:
+    """The (shard, key) pairs of cache state where sharded engines ``a`` and
+    ``b`` differ (``b``'s state compared on ``a``'s device)."""
+    return [(k, key) for k, (sa, sb) in enumerate(zip(a.state, b.state))
+            for key, v in sa.items() if not torch.equal(v, sb[key].to(v.device))]
+
+
+def sharded_path(torch, np, smi) -> dict:
+    """Phase ``sharded_path``; returns the launches of its run (a), each
+    kernel's largest difference from its plain version there, and each
+    kernel's device µs per call in the step at 8 shards."""
+    from repro_torch import serve_dlrm
+    from repro_torch.core.io_sim import DEVICES
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import make_embed_mesh
+    from repro_torch.runtime.engine import EngineConfig, dense_from_chunk
+    from repro_torch.runtime.sharded_engine import ShardedServingEngine
+    from repro_torch.workloads import build_trace
+
+    B, D, name = TRACE_BATCH, TRACE_DIM, TRACE_ARCHETYPE
+    kernel_names = ("gather_pool", "cache_probe")
+    t_phase = time.perf_counter()
+    spec = serve_dlrm.m1_spec(name, queries=TRACE_QUERIES, table_bytes=TRACE_TABLE_BYTES)
+    chunks = list(build_trace(spec).chunks(B))
+    shared = "cuda:0"
+
+    def engine(n, layout, use_kernels=True):
+        return serve_dlrm.build_trace_engine(
+            spec, D, seed=0, torch_device="cuda",
+            cfg=EngineConfig(use_kernels=use_kernels), shards=n, layout=layout,
+            devices=[shared] * n)
+
+    def store(eng):
+        return {"L": eng.sentinel,
+                "store_bytes": sum(p.numel() + s.numel() * 4 + b.numel() * 4
+                                   for p, s, b in zip(eng.payload, eng.scale, eng.bias))}
+
+    emit({"phase": "sharded_path", "part": "mesh", "card": smi,
+          "count": torch.cuda.device_count(), "shards_on": shared,
+          "note": "every shard on one card through an explicit device list: "
+                  "the times measure per-shard overhead, not scale-out",
+          "reduced": ["one row width for every table: D = 128 int8 (136 B with "
+                      "the header) instead of 90-172 B a table"]})
+
+    # (a) kernel engine vs plain engine at 8 shards, batch by batch in turns
+    n = SHARD_CHECKED
+    launches = {k: 0 for k in kernel_names}
+    gap = {"kernel_vs_plain": 0.0, "kernel_vs_reference_pool": 0.0,
+           "plain_vs_reference_pool": 0.0}
+    max_abs, per_layout = 0.0, {}
+    restore, check, _ = shadowed_dlrm_kernels(torch, ops, ref)
+    try:
+        for layout in SHARD_LAYOUTS:
+            t0 = time.perf_counter()
+            kern, plain = engine(n, layout), engine(n, layout, use_kernels=False)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            for attr in ("payload", "scale", "bias"):
+                if not all(map(torch.equal, getattr(kern, attr), getattr(plain, attr))):
+                    raise AssertionError(f"{layout}: seeded stores differ in {attr}")
+            T = len(kern.table_ids)
+            ops.reset_launch_counts()
+            for i, ch in enumerate(chunks):
+                pk, tk, ik = kern.serve_columnar(ch.columnar, TRACE_BG_IOPS)
+                pp, tp, ip = plain.serve_columnar(ch.columnar, TRACE_BG_IOPS)
+                if ik.tolist() != ip.tolist() or tk.tolist() != tp.tolist():
+                    raise AssertionError(f"{layout} batch {i}: sm_ios or sm_time_us "
+                                         "differ between the kernel and plain engines")
+                differ = shard_state_diff(torch, kern, plain)
+                if differ:
+                    raise AssertionError(f"{layout} batch {i}: cache state differs "
+                                         f"between the kernel and plain engines: {differ}")
+                idx, valid = dense_from_chunk(ch.columnar, kern.table_slot, T)
+                if idx.shape != (B, T, TRACE_P):
+                    raise AssertionError(f"{layout} batch {i}: block {idx.shape}")
+                want = kern.reference_pool(idx, valid)
+                if pk.shape != (B, T, D) or not np.isfinite(pk).all():
+                    raise AssertionError(f"{layout} batch {i}: pooled {pk.shape} not finite")
+                for key, (x, y) in {"kernel_vs_plain": (pk, pp),
+                                    "kernel_vs_reference_pool": (pk, want),
+                                    "plain_vs_reference_pool": (pp, want)}.items():
+                    gap[key] = max(gap[key], pool_gap(np, x, y))
+                max_abs = max(max_abs, float(np.abs(pk - pp).max()),
+                              float(np.abs(pk - want).max()))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            if any(counts[k] != n * len(chunks) for k in kernel_names):
+                raise AssertionError(f"sharded path ({layout}): {counts} launches over "
+                                     f"{len(chunks)} batches, want {n} of each a batch")
+            for k in kernel_names:
+                launches[k] += counts[k]
+            per_layout[layout] = {"launches": {k: counts[k] for k in kernel_names},
+                                  "hit_rate": kern.hit_rate, "sm_ios": int(kern.stats.sm_ios),
+                                  **store(kern), "setup_s": setup_s}
+            del kern, plain
+            torch.cuda.empty_cache()
+    finally:
+        restore()
+    kernel_err = check()
+    if max(gap.values()) > 1.0:
+        raise AssertionError(f"sharded path pooled outside {TRACE_POOL_TOL}: {gap}")
+    emit({"phase": "sharded_path", "part": "a_kernel_vs_plain", "archetype": name,
+          "shards": n, "batches": len(chunks), "block": [B, T, TRACE_P],
+          "layouts": per_layout, "launches": launches,
+          "kernel_vs_plain_per_call": kernel_err, "pooled_max_abs": max_abs,
+          "pooled_gap_over_tolerance": gap, "tolerance": TRACE_POOL_TOL,
+          "part_s": time.perf_counter() - t_phase})
+
+    # (b) both layouts x 1, 2, 4, 8 shards beside the single-device engine:
+    # walls from cold over the trace, then a profile of 8 more batches
+    t_part = time.perf_counter()
+    profiled = list(build_trace(serve_dlrm.m1_spec(
+        name, queries=B * SHARD_PROFILED, table_bytes=TRACE_TABLE_BYTES)).chunks(B))
+
+    def sweep(eng, n):
+        walls, out = [], []
+        for ch in chunks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out.append(eng.serve_columnar(ch.columnar, TRACE_BG_IOPS))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        hit_rate = eng.hit_rate
+        prof = device_profile(torch, lambda: [eng.serve_columnar(ch.columnar, TRACE_BG_IOPS)
+                                              for ch in profiled],
+                              SHARD_PROFILED, named=kernel_names)
+        named = prof["ops_named"]
+        if any(named[k] != n for k in kernel_names):
+            raise AssertionError(f"{n} shards: profile shows {named} kernels a batch, "
+                                 f"want {n} of each")
+        wall = statistics.median(walls[2:])           # the first batches warm up
+        row = {"shards": n, "hit_rate": hit_rate,
+               "sm_ios": int(sum(int(o[2].sum()) for o in out)),
+               "serve_columnar_ms_median": wall, "serve_columnar_ms_min": min(walls[2:]),
+               "device_busy_us": prof["device_busy_us"], "device_ops": prof["device_ops"],
+               "idle_share": (1.0 - prof["device_busy_us"] / (wall * 1e3)
+                              if prof["device_ops"] else None),
+               "device_us_per_call": {k: prof["us_named"][k] / named[k] for k in kernel_names},
+               "top_us": prof["top_us"][:4]}
+        return out, row
+
+    single = serve_dlrm.build_trace_engine(spec, D, seed=0, torch_device="cuda",
+                                           cfg=EngineConfig())
+    base, base_row = sweep(single, 1)
+    base_row["L"] = single.sentinel
+    base_state = {k: v.clone() for k, v in single.state.items()}
+    base_stats = (single.stats.sm_ios, single.stats.latency_us, single.hit_rate)
+    base_row["shards"] = 0
+    del single
+    torch.cuda.empty_cache()
+    rows, device_us = {"single": base_row}, {}
+    for layout in SHARD_LAYOUTS:
+        for n in SHARD_COUNTS:
+            eng = engine(n, layout)
+            got, row = sweep(eng, n)
+            if got[0][2].tolist() != base[0][2].tolist():
+                raise AssertionError(f"{layout} x {n}: the cold first batch's sm_ios "
+                                     "differ from the single-device engine's")
+            if n == 1:
+                for i, (a, b) in enumerate(zip(got, base)):
+                    if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                        raise AssertionError(f"{layout} x 1: batch {i} differs from "
+                                             "the single-device engine")
+                differ = [k for k, v in eng.state[0].items()
+                          if not torch.equal(v, base_state[k])]
+                if differ or (eng.stats.sm_ios, eng.stats.latency_us,
+                              eng.hit_rate) != base_stats:
+                    raise AssertionError(f"{layout} x 1: state {differ} or totals differ "
+                                         "from the single-device engine")
+            rows[f"{layout}_{n}"] = {**row, **store(eng)}
+            if n == SHARD_CHECKED:
+                device_us[layout] = row["device_us_per_call"]
+            del eng, got
+            torch.cuda.empty_cache()
+    emit({"phase": "sharded_path", "part": "b_sweep", "card": smi,
+          "batches": len(chunks), "profiled_batches": SHARD_PROFILED, "runs": rows,
+          "part_s": time.perf_counter() - t_part})
+
+    # (c) the 4e8 cut at 4 shards on the card and on the CPU, tables made
+    # with numpy
+    t_part = time.perf_counter()
+    cut_trace = build_trace(serve_dlrm.m1_spec(name, queries=B * SHARD_CUT_BATCHES,
+                                               table_bytes=TRACE_CUT_BYTES))
+    rng = np.random.default_rng(7)
+    tables = {m.table_id: rng.standard_normal((m.num_rows, D), dtype=np.float32)
+              for m in cut_trace.all_metas() if m.kind == "user"}
+    if sum(t.shape[0] for t in tables.values()) != TRACE_CUT_ROWS:
+        raise AssertionError("the 4e8 cut's rows")
+    cut_out = {}
+    for layout in SHARD_LAYOUTS:
+        res, engines, run_s = {}, {}, {}
+        for dev, mesh in (("cuda", make_embed_mesh(devices=[shared] * SHARD_CUT)),
+                          ("cpu", make_embed_mesh(SHARD_CUT, "cpu"))):
+            t0 = time.perf_counter()
+            engines[dev] = ShardedServingEngine(tables, DEVICES["nand_flash"], EngineConfig(),
+                                                mesh=mesh, layout=layout)
+            res[dev] = serve_dlrm.serve_trace(engines[dev], cut_trace, B, TRACE_BG_IOPS,
+                                              keep_pooled=True)
+            run_s[dev] = time.perf_counter() - t0
+        card, host = engines["cuda"], engines["cpu"]
+        for f in ("sm_ios", "sm_time_us", "latency_us"):
+            if getattr(res["cuda"], f).tolist() != getattr(res["cpu"], f).tolist():
+                raise AssertionError(f"4e8 cut ({layout}): {f} differs between card and CPU")
+        if card.hit_rate != host.hit_rate:
+            raise AssertionError(f"4e8 cut ({layout}): hit rate differs between card and CPU")
+        differ = shard_state_diff(torch, card, host)
+        if differ:
+            raise AssertionError(f"4e8 cut ({layout}): cache state differs between card "
+                                 f"and CPU: {differ}")
+        pairs = list(zip(res["cuda"].pooled, res["cpu"].pooled))
+        cut_gap = max(pool_gap(np, a, b) for a, b in pairs)
+        if cut_gap > 1.0:
+            raise AssertionError(f"4e8 cut ({layout}): pooled card vs CPU outside "
+                                 f"{TRACE_POOL_TOL}")
+        cut_out[layout] = {"hit_rate": card.hit_rate, "sm_ios": int(res["cuda"].sm_ios.sum()),
+                           "pooled_max_abs": max(float(np.abs(a - b).max()) for a, b in pairs),
+                           "pooled_gap_over_tolerance": cut_gap,
+                           "card_s": run_s["cuda"], "cpu_s": run_s["cpu"]}
+        del card, host, engines, res, pairs
+        torch.cuda.empty_cache()
+    emit({"phase": "sharded_path", "part": "c_card_vs_cpu", "table_bytes": TRACE_CUT_BYTES,
+          "rows": TRACE_CUT_ROWS, "shards": SHARD_CUT, "batches": SHARD_CUT_BATCHES,
+          "layouts": cut_out, "part_s": time.perf_counter() - t_part,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"launches": launches, "err": kernel_err, "device_us": device_us}
+
+
 def lm_phases(torch, np, timer, smi) -> dict:
     """Phases 6-8; returns the ``flash_decode`` entry of the kernels line."""
     from repro_torch import serve_lm
@@ -1010,6 +1260,7 @@ def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels"]):
         print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1186,30 +1437,40 @@ def main() -> int:
     # trace_path: trace-driven serving at the M1 inventory
     tr = trace_path(torch, np, timer, smi)
 
+    # sharded_path: the sharded engine at the M1 inventory
+    sh = sharded_path(torch, np, smi)
+
     # 6-8. the LM decode path and its flash_decode kernel
     fd = lm_phases(torch, np, timer, smi)
 
+    emit({"phase": "done", "script_s": time.perf_counter() - t_script})
     emit({"kernels": [
         {"name": "gather_pool", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_pool.cu",
          "replaces": "src/repro/kernels/gather_pool.py:57",
-         "launches": launches["gather_pool"] + tr["launches"]["gather_pool"],
+         "launches": launches["gather_pool"] + tr["launches"]["gather_pool"] + sh["launches"]["gather_pool"],
          "launches_by_path": {"dlrm_uniform": launches["gather_pool"],
-                              "trace_path": tr["launches"]["gather_pool"]},
-         "max_abs_err": max(err["gather_pool"], tr["err"]["gather_pool"]),
+                              "trace_path": tr["launches"]["gather_pool"],
+                              "sharded_path": sh["launches"]["gather_pool"]},
+         "max_abs_err": max(err["gather_pool"], tr["err"]["gather_pool"], sh["err"]["gather_pool"]),
          **kernel_entry(times, "gather_pool", tr["times"]),
          "device_us_per_call_in_step": device_us["gather_pool"],
-         "device_us_per_call_trace_path": tr["device_us"]["gather_pool"]},
+         "device_us_per_call_trace_path": tr["device_us"]["gather_pool"],
+         "device_us_per_call_sharded_path": {lay: us["gather_pool"]
+                                             for lay, us in sh["device_us"].items()}},
         {"name": "cache_probe", "route": "cuda",
          "source": "src/repro_torch/csrc/cache_probe.cu",
          "replaces": "src/repro/kernels/cache_probe.py:58",
-         "launches": launches["cache_probe"] + tr["launches"]["cache_probe"],
+         "launches": launches["cache_probe"] + tr["launches"]["cache_probe"] + sh["launches"]["cache_probe"],
          "launches_by_path": {"dlrm_uniform": launches["cache_probe"],
-                              "trace_path": tr["launches"]["cache_probe"]},
-         "max_abs_err": max(err["cache_probe"], tr["err"]["cache_probe"]),
+                              "trace_path": tr["launches"]["cache_probe"],
+                              "sharded_path": sh["launches"]["cache_probe"]},
+         "max_abs_err": max(err["cache_probe"], tr["err"]["cache_probe"], sh["err"]["cache_probe"]),
          **kernel_entry(times, "cache_probe", tr["times"]),
          "device_us_per_call_in_step": device_us["cache_probe"],
-         "device_us_per_call_trace_path": tr["device_us"]["cache_probe"]},
+         "device_us_per_call_trace_path": tr["device_us"]["cache_probe"],
+         "device_us_per_call_sharded_path": {lay: us["cache_probe"]
+                                             for lay, us in sh["device_us"].items()}},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:88", **fd},

@@ -12,18 +12,21 @@ traffic over the paper's M1 inventory (61 user tables, Table 6 statistics,
 ``--table-bytes`` in all), one float table of ``--dim`` per user table,
 chunk by chunk through ``DeviceServingEngine.serve_columnar``. The trace
 path scores no items; per-query latency is Eq. 3's ``max(item_time_us,
-sm_time_us)``.
+sm_time_us)``. With ``--shards N`` the trace goes through a
+``ShardedServingEngine`` of N shards in the ``--layout`` layout instead, one
+shard per card (or every shard on the CPU with ``--device cpu``).
 
 Run: PYTHONPATH=src python -m repro_torch.serve_dlrm \
          [--queries 128 --batch 32 --item-batch 50 --device cuda]
      PYTHONPATH=src python -m repro_torch.serve_dlrm --archetype zipf_steady \
          [--queries 512 --table-bytes 4e9 --dim 128 --stream 0 --device cuda]
+         [--shards 0 --layout row]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,8 +34,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.io_sim import DEVICES
 from repro_torch.core.sdm import QueryStats
+from repro_torch.launch import EMBED_LAYOUTS, make_embed_mesh
 from repro_torch.models.dlrm import DLRM, DLRMArch
 from repro_torch.runtime.engine import DeviceServingEngine, EngineConfig
+from repro_torch.runtime.sharded_engine import ShardedServingEngine
 from repro_torch.workloads import (ARCHETYPES, Trace, TraceStream,
                                    WorkloadSpec, build_trace,
                                    tenant_table_metas)
@@ -117,22 +122,34 @@ def m1_spec(name: str, *, queries: int, table_bytes: float = 4e9) -> WorkloadSpe
 
 def build_trace_engine(spec: WorkloadSpec, dim: int, *, seed: int = 0,
                        torch_device="cuda",
-                       cfg: Optional[EngineConfig] = None) -> DeviceServingEngine:
+                       cfg: Optional[EngineConfig] = None, shards: int = 0,
+                       layout: str = "row", devices: Optional[Sequence] = None
+                       ) -> Union[DeviceServingEngine, ShardedServingEngine]:
     """An engine over one ``[num_rows, dim]`` float table per user table of
     ``spec``'s inventory (every tenant's), on the Nand SM device model. The
     tables come from a generator seeded with ``seed`` on ``torch_device`` and
-    are freed once quantized into the engine's store."""
-    dev = resolve_device(torch_device)
+    are freed once quantized into the engine's store.
+
+    ``shards=0`` builds a ``DeviceServingEngine``; ``shards >= 1`` a
+    ``ShardedServingEngine`` in ``layout`` over ``make_embed_mesh(shards,
+    torch_device, devices=devices)`` (the tables then come from the first
+    shard's device), holding the same tables."""
+    mesh = (make_embed_mesh(shards, torch_device, devices=devices)
+            if shards else None)
+    dev = mesh.devices[0] if mesh else resolve_device(torch_device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     tables = {m.table_id: torch.randn((m.num_rows, dim), generator=gen,
                                       device=dev)
               for ms in tenant_table_metas(spec).values()
               for m in ms if m.kind == "user"}
+    if mesh:
+        return ShardedServingEngine(tables, DEVICES["nand_flash"], cfg,
+                                    mesh=mesh, layout=layout)
     return DeviceServingEngine(tables, DEVICES["nand_flash"], cfg,
                                torch_device=dev)
 
 
-def serve_trace(engine: DeviceServingEngine,
+def serve_trace(engine: Union[DeviceServingEngine, ShardedServingEngine],
                 trace: Union[Trace, TraceStream], chunk: int = 32,
                 bg_iops: float = 10_000.0, *,
                 keep_pooled: bool = False) -> TraceResult:
@@ -166,14 +183,18 @@ def _main_trace(args) -> None:
     spec = m1_spec(args.archetype, queries=args.queries,
                    table_bytes=args.table_bytes)
     engine = build_trace_engine(spec, args.dim, seed=0,
-                                torch_device=args.device)
+                                torch_device=args.device, shards=args.shards,
+                                layout=args.layout)
     trace = (TraceStream(spec, piece=args.stream) if args.stream
              else build_trace(spec))
     res = serve_trace(engine, trace, args.batch)
+    where = (f"{engine.n} {args.layout}-layout shards on "
+             f"{', '.join(map(str, engine.devices))}" if args.shards
+             else str(engine.torch_device))
     print(f"served {len(res.sm_ios)} {args.archetype} queries (batch="
           f"{args.batch}, {res.chunks} chunks) over {len(engine.table_ids)} "
           f"tables, {int(engine.rows_per_table.sum())} rows of {args.dim} on "
-          f"{engine.torch_device}")
+          f"{where}")
     if len(res.sm_ios):
         p50, p95, p99 = np.percentile(res.latency_us, [50, 95, 99])
         print(f"  p50/p95/p99 latency: {p50:6.0f} / {p95:6.0f} / {p99:6.0f} us "
@@ -200,7 +221,15 @@ def main(argv=None) -> None:
     ap.add_argument("--stream", type=int, default=0, metavar="PIECE",
                     help="trace path: generate and serve the trace as a "
                          "stream in pieces of PIECE queries (0: whole)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="trace path: serve through a sharded engine of this "
+                         "many shards, one per card (0: the single-device "
+                         "engine)")
+    ap.add_argument("--layout", choices=EMBED_LAYOUTS, default="row",
+                    help="trace path: the sharded store's layout")
     args = ap.parse_args(argv)
+    if args.shards and not args.archetype:
+        ap.error("--shards serves a trace: give --archetype")
     if args.archetype:
         _main_trace(args)
         return

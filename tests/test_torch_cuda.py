@@ -17,9 +17,11 @@ from repro_torch.kernels import gather_pool as gp_module
 from repro_torch.kernels.cache_probe import cache_probe
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.gather_pool import gather_pool
+from repro_torch.launch import make_embed_mesh
 from repro_torch.models.transformer import init_cache
 from repro_torch.runtime.engine import (DeviceServingEngine, EngineConfig,
                                         dense_from_chunk)
+from repro_torch.runtime.sharded_engine import ShardedServingEngine
 from repro_torch.workloads import ARCHETYPES, build_trace
 
 pytestmark = pytest.mark.cuda
@@ -297,3 +299,52 @@ def test_serve_columnar_on_card_matches_cpu(cuda, name, P):
     assert card.hit_rate == host.hit_rate and 0.0 < card.hit_rate < 1.0
     for k, v in card.state.items():
         assert torch.equal(v.cpu(), host.state[k]), k
+
+
+@pytest.mark.parametrize("layout", ["row", "table"])
+def test_sharded_engine_kernels_match_plain_on_card(cuda, layout):
+    """Four shards sharing the card, a small archetype trace: the kernel
+    engine launches each kernel once a shard a batch and equals the plain
+    engine in ``sm_ios``, ``sm_time_us`` and each shard's cache state;
+    pooled within the reference's columnar tolerance of each other and of
+    ``reference_pool``."""
+    spec = ARCHETYPES["zipf_steady"]
+    spec = dataclasses.replace(spec, num_queries=48, tenants=tuple(
+        dataclasses.replace(t, table_bytes=3e5, num_user_tables=3,
+                            num_item_tables=1) for t in spec.tenants))
+    trace = build_trace(spec)
+    rng = np.random.default_rng(5)
+    tables = {m.table_id: rng.standard_normal((m.num_rows, 32)).astype(np.float32)
+              for m in trace.all_metas() if m.kind == "user"}
+    mesh = make_embed_mesh(devices=[cuda] * 4)
+    kern, plain = (ShardedServingEngine(
+        tables, DEVICES["nand_flash"],
+        EngineConfig(hbm_cache_bytes=1 << 14, use_kernels=use), mesh=mesh,
+        layout=layout) for use in (True, False))
+    ops.reset_launch_counts()
+    chunks = list(trace.chunks(16))
+    for ch in chunks:
+        pk, tk, ik = kern.serve_columnar(ch.columnar, 1e4)
+        pp, tp, ip = plain.serve_columnar(ch.columnar, 1e4)
+        np.testing.assert_array_equal(ik, ip)
+        np.testing.assert_array_equal(tk, tp)
+        idx, valid = dense_from_chunk(ch.columnar, kern.table_slot, 3)
+        np.testing.assert_allclose(pk, pp, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(pk, kern.reference_pool(idx, valid),
+                                   rtol=1e-5, atol=1e-5)
+    counts = ops.launch_counts()
+    assert counts["gather_pool"] == counts["cache_probe"] == 4 * len(chunks)
+    assert kern.hit_rate == plain.hit_rate and 0.0 < kern.hit_rate < 1.0
+    for k in range(4):
+        for key, v in kern.state[k].items():
+            assert torch.equal(v, plain.state[k][key]), (k, key)
+
+
+def test_make_embed_mesh_needs_a_card_per_shard(cuda):
+    count = torch.cuda.device_count()
+    assert make_embed_mesh().devices == tuple(
+        torch.device("cuda", k) for k in range(count))
+    with pytest.raises(ValueError):
+        make_embed_mesh(count + 1)
+    shared = make_embed_mesh(count + 1, devices=["cuda:0"] * (count + 1))
+    assert shared.shape == {"shard": count + 1}

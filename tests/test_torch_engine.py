@@ -312,7 +312,8 @@ COLUMNAR_POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 COLUMNAR_CASES = [("zipf_steady", True, 8, 4), ("bursty", True, 8, 4),
                   ("multi_tenant", True, 4, 2),
                   ("zipf_steady", False, 48, 24), ("bursty", False, 48, 24),
-                  ("multi_tenant", False, 48, 24)]
+                  ("multi_tenant", False, 48, 24),
+                  ("diurnal", False, 48, 24), ("zipf_drift", False, 48, 24)]
 
 
 @pytest.mark.parametrize("name,use_kernels,queries,chunk", COLUMNAR_CASES)
