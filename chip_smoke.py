@@ -68,6 +68,29 @@ sharded_path -- the sharded serving engine (``ShardedServingEngine`` through
               the 4e8 cut at 4 shards on the card and on the CPU, 8 batches:
               ``sm_ios``, ``sm_time_us``, hit rate and each shard's cache
               state equal, pooled within the tolerance.
+host_plane -- the reference example's path (``examples/serve_dlrm.py``) at
+              M1 (``repro_torch.serve_dlrm --host-plane``): the SDM host
+              plane (``SDMEmbeddingStore`` + ``ServeScheduler``, numpy on the
+              host) serves 512 ``zipf_steady`` queries of the 61 user and 30
+              item tables chunk by chunk, beside the device engine over the
+              same user tables at D 128 on the card and a small DLRM
+              scoring 50 items a chunk. (a) Analytic, then sampled at 240
+              QPS with the update write stream and the §4.1 knobs, every
+              kernel call shadowed by its plain version, each kernel once a
+              chunk (counters zeroed just before, read just after); the
+              engine's pooled bags within the columnar tolerance of
+              ``reference_pool``; write waves and GC pauses; a second
+              sampled run of the same seed equal in every latency and
+              stat; ``serve_columnar`` equal to per-query ``serve_query`` on
+              the first 2 chunks; hit rates, tiers, replay and fallback
+              counts, percentiles, feasible QPS and the Table 8 power
+              model's statement. (b) The median wall per 32-query chunk of
+              the host plane's ``serve_columnar`` (analytic and sampled)
+              beside the device engine's on the same chunks. (c) The host
+              mirror: the trace's keys that fall in 24 of the cache's 7,281
+              sets, one access at a time, through ``TorchRowCache`` (the
+              ``cache_probe`` kernel) and ``SetAssocSimCache`` at the
+              device's set index: identical hit/miss at every access.
 6. flash_decode -- the decode-attention kernel against its plain version:
               f32, bf16 and the serving path's f32 query over a bf16
               cache, at the shapes of ``tests/test_kernels.py``, the
@@ -104,6 +127,7 @@ line (a quick check of the DLRM kernels, or of another checkout's).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -146,6 +170,11 @@ SHARD_LAYOUTS, SHARD_COUNTS = ("row", "table"), (1, 2, 4, 8)
 SHARD_CHECKED = 8                # shards of (a), kernel vs plain engine
 SHARD_CUT, SHARD_CUT_BATCHES = 4, 8   # (c): shards and batches, card vs CPU
 SHARD_PROFILED = 8               # profiled batches of (b)
+# host_plane: the reference example's path (examples/serve_dlrm.py:83-161) at
+# M1, the SDM host plane beside the device engine on trace_path's inventory
+HOST_QUERIES = 512               # (a) and (b): 16 chunks of TRACE_BATCH
+HOST_PREFIX_CHUNKS = 2           # (a): serve_columnar vs serve_query prefix
+HOST_MIRROR_SETS = 24            # (c): sets the mirrored keys are drawn from
 
 
 def emit(obj) -> None:
@@ -1033,6 +1062,218 @@ def sharded_path(torch, np, smi) -> dict:
     return {"launches": launches, "err": kernel_err, "device_us": device_us}
 
 
+def host_plane(torch, np, smi) -> dict:
+    """Phase ``host_plane``; returns the launches of its main run (a) and
+    each kernel's largest difference from its plain version there."""
+    from repro_torch import serve_dlrm
+    from repro_torch.core.cache import TorchRowCache, set_index
+    from repro_torch.core.cache_sim import SetAssocSimCache
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.dlrm import DLRM
+    from repro_torch.runtime.engine import EngineConfig
+    from repro_torch.workloads import build_trace
+
+    B, D, name = TRACE_BATCH, TRACE_DIM, TRACE_ARCHETYPE
+    kernel_names = ("gather_pool", "cache_probe")
+    t_phase = time.perf_counter()
+    specs = {mode: serve_dlrm.host_plane_spec(name, queries=HOST_QUERIES,
+                                              table_bytes=TRACE_TABLE_BYTES,
+                                              latency_mode=mode)
+             for mode in ("analytic", "sampled")}
+    traces = {mode: build_trace(spec) for mode, spec in specs.items()}
+    metas = traces["analytic"].all_metas()
+    users = [m for m in metas if m.kind == "user"]
+    if (len(users), len(metas) - len(users), sum(m.num_rows for m in users)) != \
+            (61, 30, TRACE_ROWS):
+        raise AssertionError(f"M1 inventory: {len(users)} user tables of "
+                             f"{sum(m.num_rows for m in users)} rows, {len(metas)} in all")
+    t0 = time.perf_counter()
+    kern = serve_dlrm.build_trace_engine(specs["analytic"], D, seed=0,
+                                         torch_device="cuda", cfg=EngineConfig())
+    model = DLRM(serve_dlrm.SCORING_ARCH, device="cuda",
+                 generator=torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+
+    def plane(mode):
+        return serve_dlrm.build_host_plane(
+            traces[mode], latency_mode=mode, updating=mode == "sampled",
+            tuned=mode == "sampled")
+
+    def summary(store, sched, res):
+        tiers = {t: res.tiers.count(t) for t in sorted(set(res.tiers))}
+        p50, p95, p99 = (sched.percentile(p) for p in (50, 95, 99))
+        out = {"queries": res.queries, "chunks": res.chunks,
+               "row_hit_rate": store.row_hit_rate,
+               "pooled_hit_rate": store.pooled_hit_rate, "last_tier_counts": tiers,
+               "chunk_plan_hits": store.chunk_plan_hits,
+               "batch_fallbacks": store.batch_fallbacks,
+               "latency_us_p50_p95_p99": [p50, p95, p99],
+               "feasible_qps": sched.qps_at_latency(),
+               "inflight": sched.inflight, "deferred": sched.deferred,
+               "sm_ios": int(store.stats.sm_ios),
+               "engine_hit_rate": kern.hit_rate, "engine_sm_ios": res.engine_sm_ios,
+               "engine_pooled_max_abs": res.max_dev_err,
+               "engine_pooled_gap_over_tolerance": res.max_dev_gap,
+               "mean_ctr_score": res.mean_score}
+        sim = store.io.sim
+        if sim is not None and sim.update is not None:
+            out["update_waves"], out["gc_pauses"] = sim.update.waves, sim.update.gc_events
+        return out
+
+    # (a) the reference example's path: analytic, then sampled with the update
+    # stream and the tuning knobs, the device engine beside each on the card
+    # with every kernel call shadowed by its plain version
+    runs, planes = {}, {}
+    restore, check, _ = shadowed_dlrm_kernels(torch, ops, ref)
+    try:
+        ops.reset_launch_counts()
+        for mode in ("analytic", "sampled"):
+            store, sched = planes[mode] = plane(mode)
+            res = serve_dlrm.serve_host_plane(sched, kern, traces[mode], B, model=model,
+                                              bg_iops=TRACE_BG_IOPS)
+            runs[mode] = summary(store, sched, res)
+            if res.max_dev_gap > 1.0 or not np.isfinite(res.mean_score):
+                raise AssertionError(f"host plane ({mode}): device engine pooled "
+                                     f"{res.max_dev_err} outside {TRACE_POOL_TOL}, "
+                                     f"score {res.mean_score}")
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        restore()
+    kernel_err = check()
+    n_chunks = runs["analytic"]["chunks"] + runs["sampled"]["chunks"]
+    if any(launches[k] != n_chunks for k in kernel_names):
+        raise AssertionError(f"host plane: {launches} launches over {n_chunks} chunks, "
+                             "want each DLRM kernel once a chunk")
+    sampled = runs["sampled"]
+    if not (sampled.get("update_waves", 0) > 0 and sampled.get("gc_pauses", 0) > 0):
+        raise AssertionError(f"--updating: {sampled.get('update_waves')} write waves, "
+                             f"{sampled.get('gc_pauses')} GC pauses")
+    # the same trace again through a fresh sampled plane of the same seed
+    store, sched = planes["sampled"]
+    again_store, again = plane("sampled")
+    for ch in traces["sampled"].chunks(B):
+        again.serve_columnar(ch.columnar, bg_iops=TRACE_BG_IOPS,
+                             arrivals_us=ch.arrival_us, collect=False)
+    if again.p_lat != sched.p_lat or \
+            dataclasses.astuple(again_store.stats) != dataclasses.astuple(store.stats):
+        raise AssertionError("sampled plane: a second run of the same seed differs")
+    # serve_columnar against per-query serve_query on a prefix, fresh planes
+    prefix = {}
+    for mode in ("analytic", "sampled"):
+        (a, _), (b, _) = plane(mode), plane(mode)
+        for ch in list(traces[mode].chunks(B))[:HOST_PREFIX_CHUNKS]:
+            a.serve_columnar(ch.columnar, TRACE_BG_IOPS, arrivals_us=ch.arrival_us)
+            for req, at in zip(ch.requests, ch.arrival_us.tolist()):
+                b.serve_query(req, TRACE_BG_IOPS, at_us=at)
+        if dataclasses.astuple(a.stats) != dataclasses.astuple(b.stats):
+            raise AssertionError(f"{mode}: serve_columnar and serve_query differ on "
+                                 f"the first {HOST_PREFIX_CHUNKS} chunks")
+        prefix[mode] = dataclasses.asdict(a.stats)
+    base, sdm = serve_dlrm.fleet_power(planes["analytic"][0])
+    emit({"phase": "host_plane", "part": "a_reference_path", "archetype": name,
+          "inventory": {"user_tables": 61, "item_tables": 30, "user_rows": TRACE_ROWS,
+                        "table_bytes": TRACE_TABLE_BYTES},
+          "offered_qps": {m: t.offered_qps for m, t in traces.items()},
+          "host_plane": "SDMEmbeddingStore(fm_cache_bytes=128 MiB, pooled_cache_bytes"
+                        "=16 MiB, nand_flash) + ServeScheduler(item_compute_us=200)",
+          "runs": runs, "launches": launches, "kernel_vs_plain_per_call": kernel_err,
+          "sampled_rerun_equal": True, "prefix_chunks": HOST_PREFIX_CHUNKS,
+          "prefix_stats": prefix,
+          "fleet_power_model": {
+              "what": "Table 8 power model output (core/power.py) at the analytic "
+                      "run's row hit rate, not a measurement",
+              "HW-L": base.total_power, "HW-SS+SDM": sdm.total_power,
+              "saving": 1 - sdm.total_power / base.total_power},
+          "setup_s": setup_s, "part_s": time.perf_counter() - t_phase})
+
+    # (b) walls per chunk on this host: fresh host planes, the device engine
+    # (warm from (a), kernels unshadowed) on the same chunks
+    t_part = time.perf_counter()
+    walls = {}
+    for mode in ("analytic", "sampled"):
+        store, sched = plane(mode)
+        res = serve_dlrm.serve_host_plane(sched, kern, traces[mode], B,
+                                          bg_iops=TRACE_BG_IOPS)
+        walls[mode] = {"host_serve_columnar_ms_median": statistics.median(res.host_ms[2:]),
+                       "host_serve_columnar_ms_min": min(res.host_ms[2:]),
+                       "device_engine_serve_columnar_ms_median":
+                           statistics.median(res.device_ms[2:]),
+                       "device_engine_serve_columnar_ms_min": min(res.device_ms[2:]),
+                       "chunks_timed": len(res.host_ms) - 2}
+    emit({"phase": "host_plane", "part": "b_walls", "card": smi, "chunk": B,
+          "walls": walls, "part_s": time.perf_counter() - t_part})
+
+    # (c) the host mirror against the device cache at the trace path's geometry:
+    # single-key accesses of the trace's own (table slot, row) keys that fall in
+    # HOST_MIRROR_SETS sets, in arrival order, through TorchRowCache's cache_probe
+    # on the card and through SetAssocSimCache at the device's set index
+    t_part = time.perf_counter()
+    geo = kern.cache.geo
+    q = traces["analytic"].queries
+    tabs = np.repeat(q.seg_table, np.diff(q.seg_offsets))      # arrival order
+    rows = q.values.astype(np.int64)
+    ids = np.array(kern.table_ids)
+    by_id = np.argsort(ids)
+    pos = np.minimum(np.searchsorted(ids[by_id], tabs), len(ids) - 1)
+    slots = by_id[pos]
+    keep = ids[slots] == tabs
+    sets = set_index(torch.from_numpy(slots[keep]), torch.from_numpy(rows[keep]),
+                     geo.num_sets).numpy()
+    chosen = np.unique(sets)[:HOST_MIRROR_SETS]
+    pick = np.isin(sets, chosen)
+    mt = slots[keep][pick].astype(np.int32)
+    mr = rows[keep][pick].astype(np.int32)
+    dev = TorchRowCache(geo, device="cuda")
+    state = dev.init()
+    sim = SetAssocSimCache(geo.num_sets, geo.ways)
+    zero = torch.zeros((1, geo.dim), device="cuda")
+    got, want = [], []
+    ops.reset_launch_counts()
+    for t, r, s_, k in zip(mt.tolist(), mr.tolist(), sets[pick].tolist(),
+                           sim._key(mt, mr).tolist()):
+        tt = torch.tensor([t], dtype=torch.int32, device="cuda")
+        rr = torch.tensor([r], dtype=torch.int32, device="cuda")
+        _, hit, _ = dev.lookup_device(state, tt, rr)
+        h = bool(hit[0])
+        if not h:
+            dev.insert(state, tt, rr, zero)
+        got.append(h)
+        want.append(sim.access_in_set(s_, k))
+    probes = ops.launch_counts()["cache_probe"]
+    if probes != len(got):
+        raise AssertionError(f"mirror: {probes} cache_probe launches for {len(got)} accesses")
+    first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if first is not None:
+        raise AssertionError(f"mirror: access {first} hit {got[first]} on the card, "
+                             f"{want[first]} on the host mirror")
+    if (int(state["hits"]), int(state["misses"])) != (sim.hits, sim.misses):
+        raise AssertionError("mirror: hit and miss counts differ")
+    tt = state["tag_table"].cpu().numpy().astype(np.int64)
+    resident = (tt << 40) | state["tag_row"].cpu().numpy().astype(np.int64)
+    resident[tt < 0] = -1
+    if not np.array_equal(resident, sim.tags):
+        raise AssertionError("mirror: resident lines differ")
+    distinct = int(len(np.unique(sim._key(mt, mr))))
+    if sim.misses <= distinct:
+        raise AssertionError(f"mirror: {sim.misses} misses of {distinct} keys, no "
+                             "eviction exercised")
+    per_set = np.bincount(np.searchsorted(chosen, sets[pick]))
+    emit({"phase": "host_plane", "part": "c_mirror", "sets": int(geo.num_sets),
+          "ways": int(geo.ways), "accesses": len(got), "sets_used": len(chosen),
+          "distinct_keys": distinct,
+          "accesses_per_set_min_max": [int(per_set.min()), int(per_set.max())],
+          "hits": sim.hits, "misses": sim.misses,
+          "misses_after_eviction": sim.misses - distinct, "identical": True,
+          "part_s": time.perf_counter() - t_part,
+          "phase_s": time.perf_counter() - t_phase})
+    del kern, model, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": kernel_err}
+
+
 def lm_phases(torch, np, timer, smi) -> dict:
     """Phases 6-8; returns the ``flash_decode`` entry of the kernels line."""
     from repro_torch import serve_lm
@@ -1440,6 +1681,9 @@ def main() -> int:
     # sharded_path: the sharded engine at the M1 inventory
     sh = sharded_path(torch, np, smi)
 
+    # host_plane: the SDM host plane beside the device engine at M1
+    hp = host_plane(torch, np, smi)
+
     # 6-8. the LM decode path and its flash_decode kernel
     fd = lm_phases(torch, np, timer, smi)
 
@@ -1448,11 +1692,14 @@ def main() -> int:
         {"name": "gather_pool", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_pool.cu",
          "replaces": "src/repro/kernels/gather_pool.py:57",
-         "launches": launches["gather_pool"] + tr["launches"]["gather_pool"] + sh["launches"]["gather_pool"],
+         "launches": launches["gather_pool"] + tr["launches"]["gather_pool"]
+         + sh["launches"]["gather_pool"] + hp["launches"]["gather_pool"],
          "launches_by_path": {"dlrm_uniform": launches["gather_pool"],
                               "trace_path": tr["launches"]["gather_pool"],
-                              "sharded_path": sh["launches"]["gather_pool"]},
-         "max_abs_err": max(err["gather_pool"], tr["err"]["gather_pool"], sh["err"]["gather_pool"]),
+                              "sharded_path": sh["launches"]["gather_pool"],
+                              "host_plane": hp["launches"]["gather_pool"]},
+         "max_abs_err": max(err["gather_pool"], tr["err"]["gather_pool"], sh["err"]["gather_pool"],
+                            hp["err"]["gather_pool"]),
          **kernel_entry(times, "gather_pool", tr["times"]),
          "device_us_per_call_in_step": device_us["gather_pool"],
          "device_us_per_call_trace_path": tr["device_us"]["gather_pool"],
@@ -1461,11 +1708,14 @@ def main() -> int:
         {"name": "cache_probe", "route": "cuda",
          "source": "src/repro_torch/csrc/cache_probe.cu",
          "replaces": "src/repro/kernels/cache_probe.py:58",
-         "launches": launches["cache_probe"] + tr["launches"]["cache_probe"] + sh["launches"]["cache_probe"],
+         "launches": launches["cache_probe"] + tr["launches"]["cache_probe"]
+         + sh["launches"]["cache_probe"] + hp["launches"]["cache_probe"],
          "launches_by_path": {"dlrm_uniform": launches["cache_probe"],
                               "trace_path": tr["launches"]["cache_probe"],
-                              "sharded_path": sh["launches"]["cache_probe"]},
-         "max_abs_err": max(err["cache_probe"], tr["err"]["cache_probe"], sh["err"]["cache_probe"]),
+                              "sharded_path": sh["launches"]["cache_probe"],
+                              "host_plane": hp["launches"]["cache_probe"]},
+         "max_abs_err": max(err["cache_probe"], tr["err"]["cache_probe"], sh["err"]["cache_probe"],
+                            hp["err"]["cache_probe"]),
          **kernel_entry(times, "cache_probe", tr["times"]),
          "device_us_per_call_in_step": device_us["cache_probe"],
          "device_us_per_call_trace_path": tr["device_us"]["cache_probe"],

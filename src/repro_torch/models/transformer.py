@@ -34,7 +34,7 @@ def require_dense(cfg: ModelConfig) -> None:
         what = PENDING_FAMILIES.get(cfg.family, cfg.family)
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md module queue, item 7: {what})")
+            f"(ROADMAP.md module queue, item \"LM model zoo\": {what})")
 
 
 def block_shapes(cfg: ModelConfig) -> dict:

@@ -16,16 +16,29 @@ sm_time_us)``. With ``--shards N`` the trace goes through a
 ``ShardedServingEngine`` of N shards in the ``--layout`` layout instead, one
 shard per card (or every shard on the CPU with ``--device cpu``).
 
+With ``--host-plane`` the trace path becomes the reference example's
+(``examples/serve_dlrm.py``): the SDM host serving plane
+(``SDMEmbeddingStore`` behind a ``ServeScheduler``: FM row cache, pooled
+cache, admission ledger, on the host whatever ``--device`` says) serves the
+trace chunk by chunk, the device engine serves the same chunks beside it on
+``--device``, and a small DLRM scores an item batch per chunk there. The
+host plane prices SM IO analytically or, with ``--latency-mode sampled``,
+through the event-driven device queues (at the paper's 240 QPS a host), with
+a model-update write stream (``--updating``) and the §4.1 tuning knobs
+(``--tuned``). It ends with the Table 8 fleet-power model's statement.
+
 Run: PYTHONPATH=src python -m repro_torch.serve_dlrm \
          [--queries 128 --batch 32 --item-batch 50 --device cuda]
      PYTHONPATH=src python -m repro_torch.serve_dlrm --archetype zipf_steady \
          [--queries 512 --table-bytes 4e9 --dim 128 --stream 0 --device cuda]
          [--shards 0 --layout row]
+         [--host-plane --latency-mode sampled --updating --tuned]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import time
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -33,10 +46,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.io_sim import DEVICES
-from repro_torch.core.sdm import QueryStats
+from repro_torch.core.power import HW_L, HW_SS, Workload, run_scenario
+from repro_torch.core.sdm import QueryStats, SDMConfig, SDMEmbeddingStore
+from repro_torch.devices import DeviceTuning, UpdateSpec
 from repro_torch.launch import EMBED_LAYOUTS, make_embed_mesh
 from repro_torch.models.dlrm import DLRM, DLRMArch
-from repro_torch.runtime.engine import DeviceServingEngine, EngineConfig
+from repro_torch.runtime.engine import (DeviceServingEngine, EngineConfig,
+                                        dense_from_chunk)
+from repro_torch.runtime.serve_sched import ServeConfig, ServeScheduler
 from repro_torch.runtime.sharded_engine import ShardedServingEngine
 from repro_torch.workloads import (ARCHETYPES, Trace, TraceStream,
                                    WorkloadSpec, build_trace,
@@ -203,6 +220,171 @@ def _main_trace(args) -> None:
     print(f"  device engine:       hit rate {engine.hit_rate:.4f}")
 
 
+# -- the host serving plane beside the device engine ---------------------------
+
+# the reference example's scoring model (examples/serve_dlrm.py:66-69)
+SCORING_ARCH = DLRMArch(user_tables=(50_000,) * 6, item_tables=(50_000,) * 3,
+                        embed_dim=32, pooling=8, bottom_mlp=(128, 64, 32),
+                        top_mlp=(128, 1))
+SAMPLED_QPS = 240.0     # Table 8's M1 rate a host, the sampled plane's offer
+# pooled bags of tens of rows: the reference's tolerance for serve_columnar
+# (tests/test_sharded_engine.py:198)
+POOL_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def host_plane_spec(name: str, *, queries: int, table_bytes: float = 4e9,
+                    latency_mode: str = "analytic") -> WorkloadSpec:
+    """``m1_spec``; in sampled mode offered at the paper's 240 QPS a host, as
+    the reference example does (the event-driven queues saturate a 2-device
+    Nand plane past a few hundred QPS of the full M1 inventory)."""
+    spec = m1_spec(name, queries=queries, table_bytes=table_bytes)
+    if latency_mode == "sampled":
+        spec = dataclasses.replace(spec, arrival=dataclasses.replace(
+            spec.arrival, rate_qps=SAMPLED_QPS))
+    return spec
+
+
+def build_host_plane(trace: Trace, *, latency_mode: str = "analytic",
+                     updating: bool = False, tuned: bool = False,
+                     seed: int = 3):
+    """The reference example's host plane over ``trace``'s inventory: an
+    ``SDMEmbeddingStore`` (Nand SM, 128 MiB FM row cache, 16 MiB pooled
+    cache; in sampled mode the update write stream and the §4.1 knobs on
+    request) behind a ``ServeScheduler``. Returns ``(store, sched)``."""
+    store = SDMEmbeddingStore(
+        trace.all_metas(), DEVICES["nand_flash"],
+        SDMConfig(fm_cache_bytes=128 << 20, pooled_cache_bytes=16 << 20,
+                  latency_mode=latency_mode,
+                  update=(UpdateSpec(model_size_gb=1000.0)
+                          if updating else None),
+                  tuning=(DeviceTuning(max_outstanding=12, read_priority=True)
+                          if tuned else None)),
+        seed=seed)
+    return store, ServeScheduler(store, ServeConfig(inter_op_parallel=True,
+                                                    item_compute_us=200.0))
+
+
+@dataclasses.dataclass
+class HostPlaneResult:
+    queries: int
+    chunks: int
+    tiers: List[str]              # the host store's tier per chunk
+    max_dev_err: float            # max |pooled - engine.reference_pool|
+    max_dev_gap: float            # the same over POOL_TOL: <= 1 is within it
+    mean_score: float             # mean CTR score over the scored item batches
+    engine_sm_ios: int
+    host_ms: List[float]          # wall of sched.serve_columnar per chunk
+    device_ms: List[float]        # wall of engine.serve_columnar per chunk
+
+
+def serve_host_plane(sched: ServeScheduler,
+                     engine: Union[DeviceServingEngine, ShardedServingEngine],
+                     trace: Trace, chunk: int = 32, *,
+                     model: Optional[DLRM] = None, item_batch: int = 50,
+                     bg_iops: float = 10_000.0, seed: int = 2
+                     ) -> HostPlaneResult:
+    """Serve ``trace`` chunk by chunk through the host plane
+    (``sched.serve_columnar`` at the trace's arrival times) and, beside it,
+    through the device engine on the same chunks, each chunk's pooled bags
+    held to ``engine.reference_pool``. With ``model`` (a DLRM of
+    ``SCORING_ARCH``'s geometry) one query's item batch a chunk is scored on
+    the model's device from uniform rows of a generator seeded ``seed``.
+    Each chunk's two serving calls are timed on the host's clock (the
+    engine's returns host arrays, so its wall includes the device's work)."""
+    rng = np.random.default_rng(seed)
+    T = len(engine.table_ids)
+    tiers, err, gap, scores, ios, n = [], 0.0, 0.0, [], 0, 0
+    host_ms, device_ms = [], []
+    with torch.no_grad():
+        for ch in trace.chunks(chunk):
+            t0 = time.perf_counter()
+            sched.serve_columnar(ch.columnar, bg_iops=bg_iops,
+                                 arrivals_us=ch.arrival_us, collect=False)
+            t1 = time.perf_counter()
+            pooled, _, sm_ios = engine.serve_columnar(ch.columnar, bg_iops)
+            t2 = time.perf_counter()
+            host_ms.append((t1 - t0) * 1e3)
+            device_ms.append((t2 - t1) * 1e3)
+            tiers.append(sched.store.last_tier)
+            idx, valid = dense_from_chunk(ch.columnar, engine.table_slot, T)
+            want = engine.reference_pool(idx, valid)
+            diff = np.abs(pooled - want)
+            err = max(err, float(diff.max()))
+            gap = max(gap, float((diff / (POOL_TOL["atol"] + POOL_TOL["rtol"]
+                                          * np.abs(want))).max()))
+            ios += int(sm_ios.sum())
+            n += ch.columnar.n_queries
+            if model is not None:
+                a = model.arch
+                dev = next(model.parameters()).device
+                u = rng.integers(0, a.user_tables[0],
+                                 (len(a.user_tables), a.pooling))
+                it = rng.integers(0, a.item_tables[0],
+                                  (len(a.item_tables), item_batch, a.pooling))
+                dense = rng.standard_normal((item_batch, a.num_dense))
+                s = model.serve_query(
+                    torch.as_tensor(u, dtype=torch.int32, device=dev),
+                    torch.as_tensor(it, dtype=torch.int32, device=dev),
+                    torch.as_tensor(dense, dtype=torch.float32, device=dev))
+                scores.append(float(s.mean()))
+    return HostPlaneResult(n, len(tiers), tiers, err, gap,
+                           float(np.mean(scores)) if scores else 0.0, ios,
+                           host_ms, device_ms)
+
+
+def fleet_power(store: SDMEmbeddingStore):
+    """The Table 8 power model (``core/power.py``) at the store's row hit
+    rate (at least 0.9), as the reference example states it: a model
+    output, not a measurement. Returns the HW-L and HW-SS+SDM scenarios."""
+    w = Workload("m1", sm_tables=50, avg_pool=42, row_bytes=59,
+                 cache_hit_rate=max(store.row_hit_rate, 0.9),
+                 total_qps=240 * 1200)
+    base = run_scenario("HW-L", HW_L, w, use_sdm=False, qps_override=240)
+    sdm = run_scenario("HW-SS+SDM", HW_SS, w, use_sdm=True)
+    return base, sdm
+
+
+def _main_host_plane(args) -> None:
+    spec = host_plane_spec(args.archetype, queries=args.queries,
+                           table_bytes=args.table_bytes,
+                           latency_mode=args.latency_mode)
+    trace = build_trace(spec)
+    store, sched = build_host_plane(trace, latency_mode=args.latency_mode,
+                                    updating=args.updating, tuned=args.tuned)
+    engine = build_trace_engine(spec, args.dim, seed=0,
+                                torch_device=args.device, shards=args.shards,
+                                layout=args.layout)
+    dev = (engine.devices[0] if isinstance(engine, ShardedServingEngine)
+           else engine.torch_device)
+    model = DLRM(SCORING_ARCH, device=dev,
+                 generator=torch.Generator().manual_seed(1))
+    res = serve_host_plane(sched, engine, trace, args.batch, model=model,
+                           item_batch=args.item_batch)
+    print(f"served {res.queries} queries of trace '{trace.name}' "
+          f"(batch={args.batch}, offered {trace.offered_qps:.0f} QPS) "
+          f"x {args.item_batch} items")
+    print(f"  SM latency plane:    {args.latency_mode}"
+          + (f" (updating={args.updating}, tuned={args.tuned})"
+             if args.latency_mode == "sampled" else ""))
+    if store.io.sim is not None and store.io.sim.update is not None:
+        u = store.io.sim.update
+        print(f"  update write plane:  {u.waves} waves, {u.gc_events} GC "
+              f"pauses")
+    print(f"  p50/p95/p99 latency: {sched.percentile(50):6.0f} / "
+          f"{sched.percentile(95):6.0f} / {sched.percentile(99):6.0f} us")
+    print(f"  row-cache hit rate:  {store.row_hit_rate:.3f}")
+    print(f"  pooled hit rate:     {store.pooled_hit_rate:.3f}")
+    print(f"  inflight IOs (now):  {sched.inflight}  deferred: {sched.deferred}")
+    print(f"  feasible QPS (p95):  {sched.qps_at_latency():.0f}")
+    print(f"  device engine:       hit rate {engine.hit_rate:.3f}, "
+          f"max |pooled - ref| = {res.max_dev_err:.2e} on {dev}")
+    print(f"  mean CTR score:      {res.mean_score:.4f}")
+    base, sdm = fleet_power(store)
+    print(f"  fleet power: HW-L={base.total_power:.0f} -> "
+          f"HW-SS+SDM={sdm.total_power:.0f} "
+          f"(saving {1 - sdm.total_power/base.total_power:.1%}, paper: 20%)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", type=int, default=128)
@@ -227,9 +409,34 @@ def main(argv=None) -> None:
                          "engine)")
     ap.add_argument("--layout", choices=EMBED_LAYOUTS, default="row",
                     help="trace path: the sharded store's layout")
+    ap.add_argument("--host-plane", action="store_true",
+                    help="trace path: serve the trace through the SDM host "
+                         "plane too, beside the device engine, and score "
+                         "items (the reference example's path)")
+    ap.add_argument("--latency-mode", default="analytic",
+                    choices=("analytic", "sampled"),
+                    help="host plane: closed-form SM latency means or the "
+                         "event-driven device simulator")
+    ap.add_argument("--updating", action="store_true",
+                    help="host plane, sampled mode: stream endurance-bounded "
+                         "model-update writes into the device plane")
+    ap.add_argument("--tuned", action="store_true",
+                    help="host plane, sampled mode: apply the §4.1 tuning "
+                         "knobs (outstanding-IO throttle + read-priority)")
     args = ap.parse_args(argv)
     if args.shards and not args.archetype:
         ap.error("--shards serves a trace: give --archetype")
+    host_flags = (args.latency_mode != "analytic" or args.updating
+                  or args.tuned)
+    if args.host_plane and not args.archetype:
+        ap.error("--host-plane serves a trace: give --archetype")
+    if host_flags and not args.host_plane:
+        ap.error("--latency-mode, --updating and --tuned need --host-plane")
+    if args.host_plane and args.stream:
+        ap.error("--host-plane serves a materialized trace: drop --stream")
+    if args.host_plane:
+        _main_host_plane(args)
+        return
     if args.archetype:
         _main_trace(args)
         return

@@ -348,3 +348,24 @@ def test_make_embed_mesh_needs_a_card_per_shard(cuda):
         make_embed_mesh(count + 1)
     shared = make_embed_mesh(count + 1, devices=["cuda:0"] * (count + 1))
     assert shared.shape == {"shard": count + 1}
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_cache_probe_path_matches_host_mirror(cuda, seed):
+    """The host mirror on the card (``chip_smoke.py`` phase ``host_plane``
+    (c) at a small geometry): per-access hit/miss of ``TorchRowCache``
+    probing through the ``cache_probe`` kernel equals ``SetAssocSimCache``
+    at the device's set index, with heavy set collisions."""
+    from test_torch_host_cache import mirror_run, resident_keys
+    from repro_torch.core.cache import CacheGeometry
+    rng = np.random.default_rng(seed)
+    tables = rng.integers(0, 4, 600).astype(np.int32)
+    rows = (rng.zipf(1.2, 600) % 300).astype(np.int32)
+    ops.reset_launch_counts()
+    got, want, state, sim = mirror_run(CacheGeometry(16, 4, 8), tables, rows,
+                                       device=cuda)
+    assert ops.launch_counts()["cache_probe"] == 600
+    assert got == want
+    assert (int(state["hits"]), int(state["misses"])) == (sim.hits, sim.misses)
+    assert sim.misses > len(np.unique(sim._key(tables, rows)))   # evictions
+    np.testing.assert_array_equal(resident_keys(state), sim.tags)
