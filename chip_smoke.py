@@ -91,6 +91,25 @@ host_plane -- the reference example's path (``examples/serve_dlrm.py``) at
               sets, one access at a time, through ``TorchRowCache`` (the
               ``cache_probe`` kernel) and ``SetAssocSimCache`` at the
               device's set index: identical hit/miss at every access.
+fleet_plane -- the fleet's device plane (``ClusterSim.run_device_plane``
+              of ``serve_dlrm.build_fleet``'s hosts) over trace_path's M1 trace
+              and tables (made on the card): simulated HW-SS hosts (Nand x 2,
+              an 8 MiB cache budget, so each engine has trace_path's 7,281 x 8
+              cache), each serving its routed share on its own engine. (a)
+              One host: ``sm_ios`` and hit rate equal trace_path's engine.
+              (b) Three hosts round robin, the last a 2-shard row-layout mesh
+              slice with both shards on the card: kernel engines with
+              telemetry (every kernel call shadowed by its plain version,
+              the counters zeroed just before and read just after, each
+              kernel once a chunk a shard), kernel engines without it, and
+              ``use_kernels=False`` engines, every ``HostReport`` field and
+              the fleet percentiles equal; each host's engine build time,
+              store bytes and ``serve_columnar`` walls, and the merged
+              registry. (c) The 4e8 cut of (b) on the card and on the CPU:
+              reports and merged registries equal. (d) ``repro_torch.
+              fleet_control`` (outage, degraded mode, autoscale, capacity
+              plan; numpy on the host) at its default 2,000 queries, with
+              its wall.
 6. flash_decode -- the decode-attention kernel against its plain version:
               f32, bf16 and the serving path's f32 query over a bf16
               cache, at the shapes of ``tests/test_kernels.py``, the
@@ -175,6 +194,10 @@ SHARD_PROFILED = 8               # profiled batches of (b)
 HOST_QUERIES = 512               # (a) and (b): 16 chunks of TRACE_BATCH
 HOST_PREFIX_CHUNKS = 2           # (a): serve_columnar vs serve_query prefix
 HOST_MIRROR_SETS = 24            # (c): sets the mirrored keys are drawn from
+# fleet_plane: trace_path's M1 trace routed over simulated HW-SS hosts, each
+# serving its share on its own device engine; the last host a mesh slice whose
+# shards share the one card
+FLEET_HOSTS, FLEET_MESH_SHARDS = 3, 2
 
 
 def emit(obj) -> None:
@@ -705,7 +728,7 @@ def trace_path(torch, np, timer, smi) -> dict:
         if not torch.equal(v, plain.state[k]):
             raise AssertionError(f"cache state {k} differs between the kernel "
                                  "and plain engines")
-    hit_rate_a = kern.hit_rate
+    hit_rate_a, kern_a_ios = kern.hit_rate, kern.stats.sm_ios
     emit({"phase": "trace_path", "part": "a_kernel_vs_plain", "archetype": name,
           "queries": len(trace), "batch": B, "batches": len(chunks),
           "tables": T, "rows": rows, "dim": D, "block": [B, T, TRACE_P],
@@ -716,7 +739,7 @@ def trace_path(torch, np, timer, smi) -> dict:
                       "the header) instead of 90-172 B a table"],
           "cache_sets": kern.cache.geo.num_sets, "cache_ways": kern.cache.geo.ways,
           "launches": launches, "hit_rate": hit_rate_a,
-          "sm_ios": int(kern.stats.sm_ios), "kernel_vs_plain_per_call": kernel_err,
+          "sm_ios": int(kern_a_ios), "kernel_vs_plain_per_call": kernel_err,
           "pooled_max_abs": max_abs, "pooled_gap_over_tolerance": gap,
           "tolerance": TRACE_POOL_TOL, "build_trace_s": build_trace_s,
           "setup_s": setup_s})
@@ -833,7 +856,7 @@ def trace_path(torch, np, timer, smi) -> dict:
     del kern
     torch.cuda.empty_cache()
     return {"launches": launches, "device_us": device_us, "err": kernel_err,
-            "times": times}
+            "times": times, "sm_ios": int(kern_a_ios), "hit_rate": hit_rate_a}
 
 
 def shard_state_diff(torch, a, b) -> list:
@@ -869,9 +892,7 @@ def sharded_path(torch, np, smi) -> dict:
             devices=[shared] * n)
 
     def store(eng):
-        return {"L": eng.sentinel,
-                "store_bytes": sum(p.numel() + s.numel() * 4 + b.numel() * 4
-                                   for p, s, b in zip(eng.payload, eng.scale, eng.bias))}
+        return {"L": eng.sentinel, "store_bytes": engine_store_bytes(eng)}
 
     emit({"phase": "sharded_path", "part": "mesh", "card": smi,
           "count": torch.cuda.device_count(), "shards_on": shared,
@@ -1271,6 +1292,190 @@ def host_plane(torch, np, smi) -> dict:
           "phase_s": time.perf_counter() - t_phase})
     del kern, model, state
     torch.cuda.empty_cache()
+    return {"launches": launches, "err": kernel_err}
+
+
+def engine_store_bytes(eng) -> int:
+    """Bytes of an engine's quantized store (every shard's), sentinel rows
+    included."""
+    parts = (zip(eng.payload, eng.scale, eng.bias) if isinstance(eng.payload, list)
+             else [(eng.payload, eng.scale, eng.bias)])
+    return sum(p.numel() * p.element_size() + s.numel() * 4 + b.numel() * 4
+               for p, s, b in parts)
+
+
+def fleet_plane(torch, np, smi, single) -> dict:
+    """Phase ``fleet_plane``; ``single`` is trace_path's run (a) (its
+    engine's ``sm_ios`` and hit rate). Returns the launches of its main run
+    (b) and each kernel's largest difference from its plain version there."""
+    import contextlib
+    import gc
+    import io
+
+    from repro_torch import fleet_control, serve_dlrm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.runtime import cluster
+    from repro_torch.workloads import build_trace
+
+    B, D, name = TRACE_BATCH, TRACE_DIM, TRACE_ARCHETYPE
+    kernel_names = ("gather_pool", "cache_probe")
+    t_phase = time.perf_counter()
+    spec = serve_dlrm.m1_spec(name, queries=TRACE_QUERIES, table_bytes=TRACE_TABLE_BYTES)
+    trace = build_trace(spec)
+    t0 = time.perf_counter()
+    tables = serve_dlrm.trace_tables(spec, D, seed=0, torch_device="cuda")
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    table_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    shared = [torch.device("cuda", 0)] * FLEET_MESH_SHARDS
+
+    # each host's engine: its build time, store bytes and serve_columnar walls
+    hosts = {}
+    attach = cluster.HostSim.attach_engine
+
+    def timed_attach(self, *args, **kw):
+        t0 = time.perf_counter()
+        eng = attach(self, *args, **kw)
+        torch.cuda.synchronize()
+        rec = hosts[self.spec.name] = {"build_s": time.perf_counter() - t0,
+                                       "store_bytes": engine_store_bytes(eng),
+                                       "serve_columnar_ms": []}
+        serve = eng.serve_columnar
+
+        def timed_serve(chunk, bg_iops):
+            t0 = time.perf_counter()
+            out = serve(chunk, bg_iops)          # host arrays: the device is done
+            rec["serve_columnar_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        eng.serve_columnar = timed_serve
+        return eng
+
+    def run(sim, tr, tabs, **kw):
+        """One ``run_device_plane``; returns its report and each host's
+        engine record, the engines freed (the timing wrapper is a cycle)."""
+        hosts.clear()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            rep = sim.run_device_plane(tr, tabs, bg_iops=TRACE_BG_IOPS,
+                                       **{"torch_device": "cuda", **kw})
+        wall = time.perf_counter() - t0
+        recs = {h: dict(r, serve_columnar_ms_median=statistics.median(r["serve_columnar_ms"]))
+                for h, r in hosts.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rep, recs, wall
+
+    def key(rep):
+        return ([dataclasses.asdict(h) for h in rep.hosts],
+                [rep.p50_us, rep.p95_us, rep.p99_us, rep.p999_us])
+
+    def fleet(telemetry=None):
+        return serve_dlrm.build_fleet(FLEET_HOSTS, mesh_host_shards=FLEET_MESH_SHARDS,
+                                      layout="row", routing="round_robin", chunk=B,
+                                      telemetry=telemetry)
+
+    cluster.HostSim.attach_engine = timed_attach
+    try:
+        # (a) one host: the trace path's engine, through the fleet's router
+        one, one_hosts, one_s = run(serve_dlrm.build_fleet(1, chunk=B), trace, tables)
+        (h,) = one.hosts
+        if (h.queries, h.sm_ios, h.engine_hit_rate, h.mesh_devices) != \
+                (len(trace), single["sm_ios"], single["hit_rate"], 1):
+            raise AssertionError(f"1-host fleet: {h.queries} queries, sm_ios {h.sm_ios}, "
+                                 f"hit rate {h.engine_hit_rate}; trace_path's engine "
+                                 f"{single['sm_ios']}, {single['hit_rate']}")
+        emit({"phase": "fleet_plane", "part": "a_one_host", "archetype": name,
+              "queries": len(trace), "tables": len(tables), "dim": D,
+              "table_bytes_on_card": table_bytes, "tables_s": tables_s,
+              "host": dataclasses.asdict(h), "engine": one_hosts, "run_s": one_s,
+              "trace_path_engine": single})
+
+        # (b) three hosts round robin, the last a 2-shard mesh slice on the one card:
+        # kernel engines with telemetry (every kernel call shadowed by its plain
+        # version, the counters zeroed just before and read just after), kernel
+        # engines without telemetry (the timed run), plain engines
+        restore, check, _ = shadowed_dlrm_kernels(torch, ops, ref)
+        try:
+            ops.reset_launch_counts()
+            kern_tel, _, tel_s = run(fleet(True), trace, tables, devices=shared)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        finally:
+            restore()
+        kernel_err = check()
+        kern, kern_hosts, kern_s = run(fleet(), trace, tables, devices=shared)
+        plain, plain_hosts, plain_s = run(
+            fleet(), trace, tables, devices=shared,
+            engine_cfg=serve_dlrm.fleet_engine_config(use_kernels=False))
+        for label, other in (("telemetry off", kern), ("plain engines", plain)):
+            if key(other) != key(kern_tel):
+                raise AssertionError(f"fleet: the kernel engines with telemetry and "
+                                     f"the {label} differ: {key(kern_tel)} {key(other)}")
+        chunks = sum(-(-h.queries // B) * h.mesh_devices for h in kern.hosts)
+        if any(launches[k] != chunks for k in kernel_names):
+            raise AssertionError(f"fleet: {launches} launches, want each DLRM kernel "
+                                 f"once a chunk a shard ({chunks})")
+        by = {h.name: h for h in kern.hosts}
+        mesh = by[f"h{FLEET_HOSTS - 1}"]
+        reg = kern_tel.telemetry.registry
+        c = reg.counters
+        if (c["serve.queries"], c["serve.sm_ios"],
+                c["engine.shard0.sm_ios"] + c["engine.shard1.sm_ios"]) != \
+                (len(trace), sum(h.sm_ios for h in kern.hosts), mesh.sm_ios) or \
+                mesh.mesh_devices != FLEET_MESH_SHARDS:
+            raise AssertionError(f"fleet telemetry {c} against the reports")
+        emit({"phase": "fleet_plane", "part": "b_kernel_vs_plain", "card": smi,
+              "hosts": FLEET_HOSTS, "mesh_host_shards": FLEET_MESH_SHARDS,
+              "shards_on": [str(d) for d in shared], "routing": "round_robin",
+              "host_spec": "HW_SS, nand_flash x 2, fm_cache_bytes 8 MiB "
+                           "(the engines' 7,281 x 8 cache)",
+              "reports": [dataclasses.asdict(h) for h in kern.hosts],
+              "fleet_p50_p95_p99_p999_us": key(kern)[1],
+              "launches": launches, "chunks_x_shards": chunks,
+              "kernel_vs_plain_per_call": kernel_err,
+              "engines_kernels": kern_hosts, "engines_plain": plain_hosts,
+              "run_s": {"kernels_telemetry_shadowed": tel_s, "kernels": kern_s,
+                        "plain": plain_s},
+              "registry": reg.as_dict()})
+        del tables
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the 4e8 cut of (b) on the card and on the CPU, tables made with numpy
+        cut_trace = build_trace(serve_dlrm.m1_spec(name, queries=TRACE_QUERIES,
+                                                   table_bytes=TRACE_CUT_BYTES))
+        rng = np.random.default_rng(7)
+        cut = {m.table_id: rng.standard_normal((m.num_rows, D), dtype=np.float32)
+               for m in cut_trace.all_metas() if m.kind == "user"}
+        if sum(t.shape[0] for t in cut.values()) != TRACE_CUT_ROWS:
+            raise AssertionError("the 4e8 cut's inventory changed")
+        card, _, card_s = run(fleet(True), cut_trace, cut, devices=shared)
+        host, _, cpu_s = run(fleet(True), cut_trace, cut, torch_device="cpu")
+        del cut
+        if key(card) != key(host):
+            raise AssertionError(f"4e8 cut: card {key(card)} and CPU {key(host)} differ")
+        if card.telemetry.registry.as_dict() != host.telemetry.registry.as_dict():
+            raise AssertionError("4e8 cut: the merged registries differ")
+        emit({"phase": "fleet_plane", "part": "c_card_vs_cpu",
+              "table_bytes": TRACE_CUT_BYTES, "rows": TRACE_CUT_ROWS,
+              "reports": [dataclasses.asdict(h) for h in card.hosts],
+              "card_s": card_s, "cpu_s": cpu_s})
+    finally:
+        cluster.HostSim.attach_engine = attach
+
+    # (d) the fleet control plane's four legs (numpy on the host) at their
+    # default 2,000 queries
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        fleet_control.main([])
+    control_s = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    if "queries served 2000/2000  (lost: 0)" not in lines:
+        raise AssertionError(f"fleet_control: {lines[:3]}")
+    emit({"phase": "fleet_plane", "part": "d_fleet_control", "queries": 2000,
+          "lines": lines, "wall_s": control_s,
+          "phase_s": time.perf_counter() - t_phase})
     return {"launches": launches, "err": kernel_err}
 
 
@@ -1684,6 +1889,9 @@ def main() -> int:
     # host_plane: the SDM host plane beside the device engine at M1
     hp = host_plane(torch, np, smi)
 
+    # fleet_plane: the trace routed over hosts, each on its own device engine
+    fl = fleet_plane(torch, np, smi, tr)
+
     # 6-8. the LM decode path and its flash_decode kernel
     fd = lm_phases(torch, np, timer, smi)
 
@@ -1693,13 +1901,14 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_pool.cu",
          "replaces": "src/repro/kernels/gather_pool.py:57",
          "launches": launches["gather_pool"] + tr["launches"]["gather_pool"]
-         + sh["launches"]["gather_pool"] + hp["launches"]["gather_pool"],
+         + sh["launches"]["gather_pool"] + hp["launches"]["gather_pool"] + fl["launches"]["gather_pool"],
          "launches_by_path": {"dlrm_uniform": launches["gather_pool"],
                               "trace_path": tr["launches"]["gather_pool"],
                               "sharded_path": sh["launches"]["gather_pool"],
-                              "host_plane": hp["launches"]["gather_pool"]},
+                              "host_plane": hp["launches"]["gather_pool"],
+                              "fleet_plane": fl["launches"]["gather_pool"]},
          "max_abs_err": max(err["gather_pool"], tr["err"]["gather_pool"], sh["err"]["gather_pool"],
-                            hp["err"]["gather_pool"]),
+                            hp["err"]["gather_pool"], fl["err"]["gather_pool"]),
          **kernel_entry(times, "gather_pool", tr["times"]),
          "device_us_per_call_in_step": device_us["gather_pool"],
          "device_us_per_call_trace_path": tr["device_us"]["gather_pool"],
@@ -1709,13 +1918,14 @@ def main() -> int:
          "source": "src/repro_torch/csrc/cache_probe.cu",
          "replaces": "src/repro/kernels/cache_probe.py:58",
          "launches": launches["cache_probe"] + tr["launches"]["cache_probe"]
-         + sh["launches"]["cache_probe"] + hp["launches"]["cache_probe"],
+         + sh["launches"]["cache_probe"] + hp["launches"]["cache_probe"] + fl["launches"]["cache_probe"],
          "launches_by_path": {"dlrm_uniform": launches["cache_probe"],
                               "trace_path": tr["launches"]["cache_probe"],
                               "sharded_path": sh["launches"]["cache_probe"],
-                              "host_plane": hp["launches"]["cache_probe"]},
+                              "host_plane": hp["launches"]["cache_probe"],
+                              "fleet_plane": fl["launches"]["cache_probe"]},
          "max_abs_err": max(err["cache_probe"], tr["err"]["cache_probe"], sh["err"]["cache_probe"],
-                            hp["err"]["cache_probe"]),
+                            hp["err"]["cache_probe"], fl["err"]["cache_probe"]),
          **kernel_entry(times, "cache_probe", tr["times"]),
          "device_us_per_call_in_step": device_us["cache_probe"],
          "device_us_per_call_trace_path": tr["device_us"]["cache_probe"],

@@ -135,6 +135,7 @@ class IOEngine:
         self.queue = queue
         self.sim = sim          # devices.sim.DeviceSim when latency_mode="sampled"
         self.integrity = None   # runtime.redundancy.RedundancyPlane, if any
+        self.telemetry = None   # obs handle; None leaves every path untouched
         self.total_ios = 0
         self.total_bus_bytes = 0
         self.total_wanted_bytes = 0
@@ -170,6 +171,9 @@ class IOEngine:
         self.total_ios += num_ios
         self.total_bus_bytes += bus
         self.total_wanted_bytes += num_ios * row_bytes
+        if self.telemetry is not None:
+            self.telemetry.registry.inc("io.submissions")
+            self.telemetry.registry.observe("io.lat_us", lat)
         return lat, bus
 
     def _latencies(self, n: np.ndarray, nz: np.ndarray, bg_iops: float,
@@ -224,6 +228,9 @@ class IOEngine:
         self.total_ios += int(n.sum())
         self.total_bus_bytes += int(b.sum())
         self.total_wanted_bytes += int(n.sum()) * row_bytes
+        if self.telemetry is not None:
+            self.telemetry.registry.inc("io.submissions", int(nz.sum()))
+            self.telemetry.registry.observe_many("io.lat_us", lat[nz])
         return lat, bus
 
     def submit_batch_multi(self, num_ios: np.ndarray, row_bytes: np.ndarray,
@@ -249,6 +256,9 @@ class IOEngine:
         self.total_ios += int(n.sum())
         self.total_bus_bytes += int(b.sum())
         self.total_wanted_bytes += int((n * rb).sum())
+        if self.telemetry is not None:
+            self.telemetry.registry.inc("io.submissions", int(nz.sum()))
+            self.telemetry.registry.observe_many("io.lat_us", lat[nz])
         return lat, bus
 
     @property

@@ -131,6 +131,7 @@ class SDMEmbeddingStore:
                 max(total, 1), seed=cfg.sim_seed, sim=sim)
         self.rng = np.random.default_rng(seed)
         self.stats = QueryStats()
+        self.telemetry = None      # obs handle; None = bit-invisible
         self.last_tier = ""        # data-plane tier that served the last chunk
         self.batch_fallbacks = 0   # columnar path dropped to the exact slow path
         self._pooled_touch: list = []  # pooled-LRU replay scratch
@@ -550,10 +551,15 @@ class SDMEmbeddingStore:
         return sm_lat, ios_q
 
     def _note_tier(self, tier: str) -> None:
-        """Record which data-plane tier served the chunk. Tier engagement
-        depends on replay-cache topology (streamed serving drops plan caches
-        per piece) while results stay bit-identical."""
+        """Record which data-plane tier served the chunk. Counted under the
+        ``diag.`` namespace: tier engagement depends on replay-cache
+        topology (streamed serving drops plan caches per piece), so it is
+        excluded from the streamed == materialized registry parity contract
+        while results stay bit-identical. ``last_tier`` is kept with or
+        without a handle (``HostPlaneResult.tiers`` reads it)."""
         self.last_tier = tier
+        if self.telemetry is not None:
+            self.telemetry.registry.inc("diag.tier." + tier)
 
     # -- fused replay tiers ---------------------------------------------------
     #

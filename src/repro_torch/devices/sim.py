@@ -106,6 +106,7 @@ class DeviceSim:
         self.write_busy_us = 0.0
         self.smoothing_delay_us = 0.0
         self.depth_collapses = 0      # submissions priced past the knee
+        self.telemetry = None         # obs handle; None = bit-invisible
 
     # -- internals -----------------------------------------------------------
 
@@ -124,9 +125,13 @@ class DeviceSim:
             return
         free = self.slot_free_us
         read_priority = self.tuning.read_priority
+        tel = self.telemetry
         if self.update is not None:
             for at, service in self.update.pop_until(t_us):
                 self.write_busy_us += service
+                if tel is not None:
+                    tel.tracer.span("io.write_wave", "io", at, service,
+                                    gc=bool(service > self.update.service_us))
                 if read_priority:
                     # §4.1 read-priority: programs are suspendable — update
                     # writes reclaim read-idle channel time and never block a
@@ -145,6 +150,8 @@ class DeviceSim:
         for stream in self.extra_streams:
             for at, service in stream.pop_until(t_us):
                 self.repair_busy_us += service
+                if tel is not None:
+                    tel.tracer.span("io.rebuild_wave", "io", at, service)
                 slot = self._rr % len(free)
                 self._rr += 1
                 free[slot] = max(at, free[slot]) + service
@@ -231,6 +238,14 @@ class DeviceSim:
         self.read_waves += ndev * n_waves
         self.read_ios += num_ios
         self.read_busy_us += ndev * hold
+        tel = self.telemetry
+        if tel is not None:
+            tel.registry.observe("device.queue_wait_us", start_max - t_adm)
+            tel.registry.observe("device.service_us", service)
+            tel.tracer.counter("device.depth", t_adm, self._depth)
+            tel.tracer.span("io.read_wave", "io", t_adm,
+                            start_max + service - t_adm,
+                            ios=num_ios, waves=int(ndev * n_waves))
         return start_max + service - t
 
     def submit_batch(self, at_us: np.ndarray, num_ios: np.ndarray,

@@ -126,6 +126,7 @@ class DeviceServingEngine:
         self.state = self.cache.init()
         self.io = IOEngine(device, cfg.num_devices, cfg.io_queue)
         self.stats = QueryStats()        # store-level totals, host-plane shape
+        self.telemetry = None            # obs handle; None = bit-invisible
         self.table_slot = {t: i for i, t in enumerate(self.table_ids)}
 
     # -- device step ----------------------------------------------------------
@@ -232,6 +233,9 @@ class DeviceServingEngine:
         rb = np.full(miss.size, self.row_bytes, np.int64)
         lats, _ = self.io.submit_batch_multi(miss.reshape(-1), rb, bg_iops)
         sm_lat = lats.reshape(miss.shape).max(axis=1)
+        if self.telemetry is not None:
+            self.telemetry.registry.inc("engine.batches")
+            self.telemetry.registry.observe_many("engine.sm_time_us", sm_lat)
         stats = []
         for b in range(miss.shape[0]):
             # Eq. 3: user-side SM time overlaps item-side compute; only the

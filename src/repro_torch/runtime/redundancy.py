@@ -176,6 +176,7 @@ class RedundancyPlane:
         self.sim = sim
         self.model = MediaErrorModel(self.integrity, device, seed)
         self.stats = IntegrityStats()
+        self.telemetry = None   # obs handle; None = bit-invisible
         self.rebuild = RebuildStream(self.replication, device)
         self._lost_remaining = 0         # rows still without full redundancy
         self._rebuilt_ack = 0            # rebuild progress folded into stats
@@ -242,6 +243,11 @@ class RedundancyPlane:
                 stats.hedged_reads += int(slow.size)
                 stats.repair_ios += int(slow.size)
                 stats.hedge_wins += int(wins.sum())
+                if self.telemetry is not None:
+                    self.telemetry.tracer.span(
+                        "io.hedged_read", "integrity", t_max,
+                        float(lat[slow].max()), n=int(slow.size),
+                        wins=int(wins.sum()))
 
         # (4) device loss: until the rebuild restores redundancy, a read
         # has P(primary on the dead device and not yet rebuilt); those rows
@@ -276,6 +282,9 @@ class RedundancyPlane:
                 for j in bz:
                     lat[nz[j]] += model.recover_rows(
                         int(bad[j]), stats, replica_p)
+                if bz.size and self.telemetry is not None:
+                    self.telemetry.recorder.record(
+                        t_max, "retry_ladder", rows=int(bad[bz].sum()))
 
         return lat if isinstance(lat_us, np.ndarray) else type(lat_us)(lat)
 
@@ -297,6 +306,8 @@ class RedundancyPlane:
         self.stats.rows_lost += rows
         self._lost_remaining += rows
         self.rebuild.start(at_us, rows)
+        if self.telemetry is not None:
+            self.telemetry.recorder.record(at_us, "rebuild_start", rows=rows)
         return rows
 
     def _advance(self, t_us: float) -> None:
@@ -313,6 +324,10 @@ class RedundancyPlane:
                 self._rebuilt_ack = done
                 self.stats.rows_rebuilt += new
                 self._lost_remaining = max(0, self._lost_remaining - new)
+                if self._lost_remaining == 0 and self.telemetry is not None:
+                    self.telemetry.recorder.record(
+                        t_us, "rebuild_complete",
+                        rows=self.stats.rows_rebuilt)
         if self.sim is not None and (self.integrity.wear_scale > 0.0
                                      or self.integrity.disturb_scale > 0.0):
             upd = self.sim.update

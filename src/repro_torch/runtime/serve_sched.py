@@ -65,6 +65,7 @@ class ServeScheduler:
         self.deferred = 0                      # admission-control rejections
         self._events: List[tuple] = []         # (completion_time_us, ios)
         self.p_lat: List[float] = []
+        self.telemetry = None                  # obs handle; None = invisible
 
     # -- event-driven in-flight ledger ---------------------------------------
 
@@ -106,6 +107,8 @@ class ServeScheduler:
             # exposed serially after compute (the pre-A.2 operator runtime)
             lat = cfg.item_compute_us + qs.sm_time_us
         self.p_lat.append(lat)
+        if self.telemetry is not None:
+            self.telemetry.registry.observe("serve.latency_us", lat)
         return QueryResult(latency_us=lat, sm_ios=qs.sm_ios)
 
     # -- serving entry points -------------------------------------------------
@@ -205,6 +208,7 @@ class ServeScheduler:
         n = len(sm_time)
         if n == 0:
             return [] if collect else None
+        t0 = self.now_us
         ios = np.asarray(sm_ios, np.int64)
         stime = np.asarray(sm_time, np.float64)
         if not self._events and self.inflight == 0 and not ios.any():
@@ -226,6 +230,8 @@ class ServeScheduler:
                 lat = cfg.item_compute_us + stime
             lat_list = lat.tolist()
             self.p_lat.extend(lat_list)
+            if self.telemetry is not None:
+                self._telemetry_chunk(t0, n, lat, 0)
             if collect:
                 return [QueryResult(latency_us=lat_list[q], sm_ios=0)
                         for q in range(n)]
@@ -277,6 +283,9 @@ class ServeScheduler:
             results = [self._admit(
                 QueryStats(sm_ios=int(ios[q]), sm_time_us=float(stime[q])),
                 None if at is None else float(at[q])) for q in range(n)]
+            if self.telemetry is not None:
+                # latencies already observed per query inside _admit
+                self._telemetry_chunk(t0, n, None, ios)
             return results if collect else None
         # no deferrals: commit the whole chunk at once
         last_now = float(now_q[-1])
@@ -297,10 +306,32 @@ class ServeScheduler:
             lat = cfg.item_compute_us + stime
         lat_list = lat.tolist()
         self.p_lat.extend(lat_list)
+        if self.telemetry is not None:
+            self._telemetry_chunk(t0, n, lat, ios)
         if collect:
             return [QueryResult(latency_us=lat_list[q], sm_ios=int(ios[q]))
                     for q in range(n)]
         return None
+
+    def _telemetry_chunk(self, t0: float, n: int, lat, ios) -> None:
+        """Per-chunk telemetry: chunk latencies into the histogram (``lat``
+        is None when the saturated replay already observed them per query),
+        the in-flight gauge/track, and a sampled serve span tagged with the
+        data-plane tier that handled the chunk. ``ios`` may be an array —
+        its sum (span decoration only) is deferred behind the sampling
+        gate."""
+        tel = self.telemetry
+        reg = tel.registry
+        if lat is not None:
+            reg.hist("serve.latency_us").observe_many(lat)
+        reg.hist("sched.inflight_ios").observe(self.inflight)
+        tr = tel.tracer
+        tr.counter("sched.inflight", self.now_us, self.inflight)
+        if tr.want("serve.chunk"):
+            ios_total = int(ios.sum()) if isinstance(ios, np.ndarray) else ios
+            tr.record("serve.chunk", "serve", t0,
+                      max(self.now_us - t0, 0.0), n=n, ios=ios_total,
+                      tier=getattr(self.store, "last_tier", ""))
 
     # -- reporting ------------------------------------------------------------
 

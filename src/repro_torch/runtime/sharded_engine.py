@@ -159,6 +159,7 @@ class ShardedServingEngine:
         self.state = [c.init() for c in self.caches]
         self.io = IOEngine(device, cfg.num_devices, cfg.io_queue)
         self.stats = QueryStats()
+        self.telemetry = None          # obs handle; None = bit-invisible
 
     # -- device step ----------------------------------------------------------
 
@@ -286,6 +287,12 @@ class ShardedServingEngine:
         lats, _ = self.io.submit_batch_multi(miss.reshape(-1), rb, bg_iops)
         sm_lat = lats.reshape(miss.shape).max(axis=(0, 2))     # [B]
         ios_q = miss.sum(axis=(0, 2))                          # [B]
+        if self.telemetry is not None:
+            reg = self.telemetry.registry
+            reg.inc("engine.batches")
+            reg.observe_many("engine.sm_time_us", sm_lat)
+            for k, v in enumerate(miss.sum(axis=(1, 2)).tolist()):
+                reg.inc(f"engine.shard{k}.sm_ios", int(v))
         stats = []
         for b in range(miss.shape[1]):
             q = QueryStats(latency_us=max(self.cfg.item_time_us, sm_lat[b]),

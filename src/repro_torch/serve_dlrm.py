@@ -27,19 +27,29 @@ through the event-driven device queues (at the paper's 240 QPS a host), with
 a model-update write stream (``--updating``) and the §4.1 tuning knobs
 (``--tuned``). It ends with the Table 8 fleet-power model's statement.
 
+With ``--fleet-hosts N`` the trace is routed over a fleet of N simulated
+HW-SS hosts (``runtime.cluster.ClusterSim.run_device_plane``), each serving
+its share through its own device engine on ``--device`` (8 MiB HBM cache,
+Nand x 2); with ``--mesh-host-shards K`` the last host is a ``K``-shard
+mesh slice in the ``--layout`` layout, its shards spread over the cards. It prints each
+host's queries, SM IOs, engine hit rate, shards and p50/p99 latency, and
+with ``--telemetry`` the merged telemetry registry's counters.
+
 Run: PYTHONPATH=src python -m repro_torch.serve_dlrm \
          [--queries 128 --batch 32 --item-batch 50 --device cuda]
      PYTHONPATH=src python -m repro_torch.serve_dlrm --archetype zipf_steady \
          [--queries 512 --table-bytes 4e9 --dim 128 --stream 0 --device cuda]
          [--shards 0 --layout row]
          [--host-plane --latency-mode sampled --updating --tuned]
+         [--fleet-hosts 3 --mesh-host-shards 2 --routing round_robin
+          --telemetry]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -51,6 +61,8 @@ from repro_torch.core.sdm import QueryStats, SDMConfig, SDMEmbeddingStore
 from repro_torch.devices import DeviceTuning, UpdateSpec
 from repro_torch.launch import EMBED_LAYOUTS, make_embed_mesh
 from repro_torch.models.dlrm import DLRM, DLRMArch
+from repro_torch.runtime.cluster import (ClusterConfig, ClusterSim,
+                                         HostSpec, host_compute_qps)
 from repro_torch.runtime.engine import (DeviceServingEngine, EngineConfig,
                                         dense_from_chunk)
 from repro_torch.runtime.serve_sched import ServeConfig, ServeScheduler
@@ -137,15 +149,26 @@ def m1_spec(name: str, *, queries: int, table_bytes: float = 4e9) -> WorkloadSpe
             table_bytes=table_bytes) for t in spec.tenants))
 
 
+def trace_tables(spec: WorkloadSpec, dim: int, *, seed: int = 0,
+                 torch_device="cuda") -> Dict[int, torch.Tensor]:
+    """One ``[num_rows, dim]`` float table per user table of ``spec``'s
+    inventory (every tenant's), from a generator seeded with ``seed`` on
+    ``torch_device``."""
+    dev = resolve_device(torch_device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {m.table_id: torch.randn((m.num_rows, dim), generator=gen,
+                                    device=dev)
+            for ms in tenant_table_metas(spec).values()
+            for m in ms if m.kind == "user"}
+
+
 def build_trace_engine(spec: WorkloadSpec, dim: int, *, seed: int = 0,
                        torch_device="cuda",
                        cfg: Optional[EngineConfig] = None, shards: int = 0,
                        layout: str = "row", devices: Optional[Sequence] = None
                        ) -> Union[DeviceServingEngine, ShardedServingEngine]:
-    """An engine over one ``[num_rows, dim]`` float table per user table of
-    ``spec``'s inventory (every tenant's), on the Nand SM device model. The
-    tables come from a generator seeded with ``seed`` on ``torch_device`` and
-    are freed once quantized into the engine's store.
+    """An engine over ``trace_tables(spec, dim)``, on the Nand SM device
+    model; the tables are freed once quantized into the engine's store.
 
     ``shards=0`` builds a ``DeviceServingEngine``; ``shards >= 1`` a
     ``ShardedServingEngine`` in ``layout`` over ``make_embed_mesh(shards,
@@ -154,11 +177,7 @@ def build_trace_engine(spec: WorkloadSpec, dim: int, *, seed: int = 0,
     mesh = (make_embed_mesh(shards, torch_device, devices=devices)
             if shards else None)
     dev = mesh.devices[0] if mesh else resolve_device(torch_device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    tables = {m.table_id: torch.randn((m.num_rows, dim), generator=gen,
-                                      device=dev)
-              for ms in tenant_table_metas(spec).values()
-              for m in ms if m.kind == "user"}
+    tables = trace_tables(spec, dim, seed=seed, torch_device=dev)
     if mesh:
         return ShardedServingEngine(tables, DEVICES["nand_flash"], cfg,
                                     mesh=mesh, layout=layout)
@@ -385,6 +404,77 @@ def _main_host_plane(args) -> None:
           f"(saving {1 - sdm.total_power/base.total_power:.1%}, paper: 20%)")
 
 
+# -- a fleet of hosts, each serving its share on its own device engine -------
+
+# the reference example's fleet host (examples/fleet_control.py:33-34): an
+# HW-SS host over Nand x 2 whose 8 MiB cache budget becomes the engine's
+FLEET_HOST = HostSpec(name="h", host=HW_SS, device="nand_flash",
+                      num_devices=2, fm_cache_bytes=8 << 20)
+FLEET_ROUTINGS = ("round_robin", "tenant_sticky", "per_tenant")
+
+
+def build_fleet(hosts: int, *, mesh_host_shards: int = 0,
+                layout: str = "row", routing: str = "round_robin",
+                chunk: int = 32, telemetry=None) -> ClusterSim:
+    """A ``ClusterSim`` of ``hosts`` ``FLEET_HOST`` hosts named h0, h1, ...;
+    with ``mesh_host_shards`` K > 0 the last one is a mesh slice of
+    ``mesh_shape=(K,)`` in ``layout``. ``telemetry`` is the cluster's
+    telemetry setting (None: off, bit-invisible)."""
+    if hosts < 1:
+        raise ValueError(f"a fleet needs at least one host, got {hosts}")
+    specs = [dataclasses.replace(FLEET_HOST, name=f"h{i}")
+             for i in range(hosts)]
+    if mesh_host_shards:
+        specs[-1] = dataclasses.replace(specs[-1],
+                                        mesh_shape=(mesh_host_shards,),
+                                        shard_layout=layout)
+    return ClusterSim(ClusterConfig(hosts=tuple(specs), routing=routing,
+                                    chunk=chunk, telemetry=telemetry))
+
+
+def fleet_engine_config(use_kernels: bool = True) -> EngineConfig:
+    """The engine config ``HostSim.attach_engine`` gives a ``FLEET_HOST``
+    by default (the kernels on), or the same with the plain versions."""
+    h = FLEET_HOST
+    return EngineConfig(hbm_cache_bytes=h.fm_cache_bytes,
+                        num_devices=h.num_devices,
+                        item_time_us=1e6 / host_compute_qps(h.host),
+                        use_kernels=use_kernels)
+
+
+def _main_fleet(args) -> None:
+    spec = m1_spec(args.archetype, queries=args.queries,
+                   table_bytes=args.table_bytes)
+    trace = build_trace(spec)
+    tables = trace_tables(spec, args.dim, seed=0, torch_device=args.device)
+    sim = build_fleet(args.fleet_hosts, mesh_host_shards=args.mesh_host_shards,
+                      layout=args.layout, routing=args.routing,
+                      chunk=args.batch,
+                      telemetry=True if args.telemetry else None)
+    # a mesh host's shard k goes on card k mod count, so one card can hold
+    # every shard; on the CPU make_embed_mesh puts every shard there
+    devices = None
+    if resolve_device(args.device).type == "cuda" and args.mesh_host_shards:
+        count = torch.cuda.device_count()
+        devices = [torch.device("cuda", k % count)
+                   for k in range(args.mesh_host_shards)]
+    with torch.no_grad():
+        rep = sim.run_device_plane(trace, tables, bg_iops=10_000.0,
+                                   torch_device=args.device, devices=devices)
+    print(f"served {rep.queries} {args.archetype} queries over "
+          f"{len(rep.hosts)} hosts ({args.routing}, batch={args.batch}) on "
+          f"{args.device}: {len(tables)} tables of {args.dim}")
+    for h in rep.hosts:
+        print(f"  {h.name:<4} queries {h.queries:5d}  SM IOs {h.sm_ios:8d}  "
+              f"engine hit rate {h.engine_hit_rate:.4f}  shards "
+              f"{h.mesh_devices}  p50/p99 {h.p50_us:6.0f} / {h.p99_us:6.0f} us")
+    print(f"  fleet p50/p99/p99.9: {rep.p50_us:6.0f} / {rep.p99_us:6.0f} / "
+          f"{rep.p999_us:6.0f} us (Eq. 3, analytic SM model)")
+    if rep.telemetry is not None:
+        for k, v in sorted(rep.telemetry.registry.counters.items()):
+            print(f"  telemetry {k}: {v}")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--queries", type=int, default=128)
@@ -423,7 +513,30 @@ def main(argv=None) -> None:
     ap.add_argument("--tuned", action="store_true",
                     help="host plane, sampled mode: apply the §4.1 tuning "
                          "knobs (outstanding-IO throttle + read-priority)")
+    ap.add_argument("--fleet-hosts", type=int, default=0,
+                    help="trace path: route the trace over a fleet of this "
+                         "many hosts, each serving on its own device engine")
+    ap.add_argument("--mesh-host-shards", type=int, default=0,
+                    help="fleet: make the last host a mesh slice of this "
+                         "many shards (0: a single-device host)")
+    ap.add_argument("--routing", choices=FLEET_ROUTINGS,
+                    default="round_robin", help="fleet: the router")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="fleet: record telemetry and print its counters")
     args = ap.parse_args(argv)
+    fleet_flags = (args.mesh_host_shards or args.telemetry
+                   or args.routing != "round_robin")
+    if args.fleet_hosts and not args.archetype:
+        ap.error("--fleet-hosts serves a trace: give --archetype")
+    if fleet_flags and not args.fleet_hosts:
+        ap.error("--mesh-host-shards, --routing and --telemetry need "
+                 "--fleet-hosts")
+    if args.fleet_hosts and (args.shards or args.host_plane or args.stream):
+        ap.error("--fleet-hosts takes neither --shards, --host-plane nor "
+                 "--stream")
+    if args.fleet_hosts:
+        _main_fleet(args)
+        return
     if args.shards and not args.archetype:
         ap.error("--shards serves a trace: give --archetype")
     host_flags = (args.latency_mode != "analytic" or args.updating

@@ -7,8 +7,9 @@ and MMPP-bursty arrivals, pooling-factor mixes, multi-model tenancy drawn
 from the paper's Table 6 models) in columnar (CSR) form, and streams long
 ones in bounded memory (:class:`~repro_torch.workloads.stream.TraceStream`).
 ``repro_torch.serve_dlrm.serve_trace`` feeds them chunk by chunk to
-``DeviceServingEngine.serve_columnar``. Copies of ``repro.workloads``; the
-failure schedules (``failures.py``) come with the cluster plane.
+``DeviceServingEngine.serve_columnar`` and ``runtime.cluster.ClusterSim``
+routes them over hosts under timed failure schedules (``failures.py``).
+Copies of ``repro.workloads``.
 """
 from repro_torch.workloads.trace import (Trace, TraceChunk,  # noqa: F401
                                          interleave_arrivals, mmpp_arrivals,
@@ -20,3 +21,5 @@ from repro_torch.workloads.archetypes import (ARCHETYPES, TENANT_TID_BASE,  # no
                                               WorkloadSpec, build_trace,
                                               tenant_table_metas)
 from repro_torch.workloads.stream import TraceStream  # noqa: F401
+from repro_torch.workloads.failures import (FailureEvent, FailureSpec,  # noqa: F401
+                                            seeded_failures)

@@ -369,3 +369,41 @@ def test_cache_probe_path_matches_host_mirror(cuda, seed):
     assert (int(state["hits"]), int(state["misses"])) == (sim.hits, sim.misses)
     assert sim.misses > len(np.unique(sim._key(tables, rows)))   # evictions
     np.testing.assert_array_equal(resident_keys(state), sim.tags)
+
+
+@pytest.mark.parametrize("layout", ["row", "table"])
+def test_fleet_device_plane_on_card(cuda, layout):
+    """``ClusterSim.run_device_plane`` over three hosts, round robin, the
+    last a 2-shard mesh slice with both shards on the card: the kernel
+    engines launch each kernel once a chunk a shard and equal the
+    ``use_kernels=False`` engines and the same fleet on the CPU in every
+    ``HostReport`` field, the fleet percentiles and the merged registry."""
+    from repro_torch import serve_dlrm
+    spec = ARCHETYPES["zipf_steady"]
+    spec = dataclasses.replace(spec, num_queries=96, tenants=tuple(
+        dataclasses.replace(t, table_bytes=3e5, num_user_tables=3,
+                            num_item_tables=1) for t in spec.tenants))
+    trace = build_trace(spec)
+    rng = np.random.default_rng(6)
+    tables = {m.table_id: rng.standard_normal((m.num_rows, 32)).astype(np.float32)
+              for m in trace.all_metas() if m.kind == "user"}
+
+    def run(device, **kw):
+        sim = serve_dlrm.build_fleet(3, mesh_host_shards=2, layout=layout,
+                                     chunk=16, telemetry=True)
+        rep = sim.run_device_plane(trace, tables, torch_device=device,
+                                   devices=[device] * 2 if device == cuda
+                                   else None, **kw)
+        return ([dataclasses.asdict(h) for h in rep.hosts],
+                [rep.p50_us, rep.p95_us, rep.p99_us, rep.p999_us],
+                rep.telemetry.registry.as_dict())
+
+    ops.reset_launch_counts()
+    kern = run(cuda)
+    counts = ops.launch_counts()
+    assert counts["gather_pool"] == counts["cache_probe"] == 2 + 2 + 2 * 2
+    plain = run(cuda, engine_cfg=serve_dlrm.fleet_engine_config(False))
+    assert ops.launch_counts() == counts
+    assert kern == plain == run("cpu")
+    assert [h["mesh_devices"] for h in kern[0]] == [1, 1, 2]
+    assert all(0.0 < h["engine_hit_rate"] < 1.0 for h in kern[0])

@@ -11,11 +11,12 @@ sampled latency modes, and a data-integrity/redundancy plane. Per-query
 and fallback counters and both caches' full state must be exactly equal;
 pooled vectors (``materialize_dim``) within 1e-6.
 
-The reference records ``last_tier`` only with a telemetry handle attached,
-so its stores get a handle that counts nothing; the port records it always.
+Every store gets a telemetry handle of its own package: the reference
+records ``last_tier`` only with one attached (the port records it always),
+and both count each chunk's tier under ``diag.tier.<tier>``, which must be
+equal too.
 """
 import dataclasses
-import types
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from repro.core.io_sim import DEVICES as JDEVICES
 from repro.devices import DeviceTuning as JTuning
 from repro.devices import IntegritySpec as JIntegrity
 from repro.devices import UpdateSpec as JUpdate
+from repro.obs import Telemetry as JTelemetry
 from repro.runtime import serve_sched as jsched
 from repro.runtime.redundancy import ReplicationSpec as JReplication
 from repro.workloads import ARCHETYPES as JARCH
@@ -37,20 +39,19 @@ from repro_torch.core.io_sim import DEVICES as TDEVICES
 from repro_torch.devices import DeviceTuning as TTuning
 from repro_torch.devices import IntegritySpec as TIntegrity
 from repro_torch.devices import UpdateSpec as TUpdate
+from repro_torch.obs import Telemetry as TTelemetry
 from repro_torch.runtime import serve_sched as tsched
 from repro_torch.runtime.redundancy import ReplicationSpec as TReplication
 from repro_torch.workloads import build_trace as tbuild
 
 POOL_TOL = 1e-6
-SILENT = types.SimpleNamespace(
-    registry=types.SimpleNamespace(inc=lambda *a, **k: None))
 
 PORT = dict(sdm=tsdm, loc=tloc, dev=TDEVICES, tuning=TTuning, update=TUpdate,
             integrity=TIntegrity, replication=TReplication, sched=tsched,
-            build=tbuild)
+            build=tbuild, telemetry=TTelemetry)
 REF = dict(sdm=jsdm, loc=jloc, dev=JDEVICES, tuning=JTuning, update=JUpdate,
            integrity=JIntegrity, replication=JReplication, sched=jsched,
-           build=jbuild)
+           build=jbuild, telemetry=JTelemetry)
 
 # latency-mode / device-plane variants of SDMConfig, built per package
 MODES = {
@@ -85,8 +86,7 @@ def make_store(p, metas, mode="analytic", *, fm=64 << 20, pooled=8 << 20,
     store = p["sdm"].SDMEmbeddingStore(metas, p["dev"]["nand_flash"], cfg,
                                        seed=seed,
                                        materialize_dim=materialize_dim)
-    if p is REF:
-        store.telemetry = SILENT
+    store.telemetry = p["telemetry"]()
     return store
 
 
@@ -94,6 +94,14 @@ def twins(mode="analytic", metas=None, **kw):
     tm = sample_metas(PORT) if metas is None else metas[0]
     jm = sample_metas(REF) if metas is None else metas[1]
     return make_store(PORT, tm, mode, **kw), make_store(REF, jm, mode, **kw)
+
+
+def tier_counts(store):
+    """The store's ``diag.tier.*`` counters (the whole registry: a store's
+    handle counts nothing else)."""
+    counters = store.telemetry.registry.counters
+    assert all(k.startswith("diag.tier.") for k in counters), counters
+    return counters
 
 
 def stats_tuple(q):
@@ -120,6 +128,7 @@ def assert_stores_equal(t, j):
                 rtol=0, atol=POOL_TOL)
     assert (t.batch_fallbacks, t.chunk_plan_hits, t.last_tier) == \
         (j.batch_fallbacks, j.chunk_plan_hits, j.last_tier)
+    assert tier_counts(t) == tier_counts(j)
     assert (t.row_hit_rate, t.pooled_hit_rate) == (j.row_hit_rate, j.pooled_hit_rate)
     assert (t.io.total_ios, t.io.total_bus_bytes) == \
         (j.io.total_ios, j.io.total_bus_bytes)
@@ -413,6 +422,7 @@ def test_host_plane_path_matches_reference_example(mode, updating, tuned):
     trace = tbuild(spec)
     store, sched = serve_dlrm.build_host_plane(
         trace, latency_mode=mode, updating=updating, tuned=tuned)
+    store.telemetry = TTelemetry()
     engine = serve_dlrm.build_trace_engine(spec, 8, torch_device="cpu")
     res = serve_dlrm.serve_host_plane(sched, engine, trace, 32)
     jtr = m1(REF, queries=96, table_bytes=3e6,
@@ -425,7 +435,7 @@ def test_host_plane_path_matches_reference_example(mode, updating, tuned):
                        tuning=(JTuning(max_outstanding=12, read_priority=True)
                                if tuned else None)),
         seed=3)
-    jstore.telemetry = SILENT
+    jstore.telemetry = JTelemetry()
     jsch = jsched.ServeScheduler(jstore, jsched.ServeConfig(
         inter_op_parallel=True, item_compute_us=200.0))
     jtiers = []
@@ -434,6 +444,8 @@ def test_host_plane_path_matches_reference_example(mode, updating, tuned):
                             arrivals_us=ch.arrival_us, collect=False)
         jtiers.append(jstore.last_tier)
     assert res.tiers == jtiers and res.chunks == 3 and res.queries == 96
+    assert tier_counts(store) == tier_counts(jstore)
+    assert sum(tier_counts(store).values()) == 3
     assert_sched_equal(sched, jsch)
     if updating:
         u, ju = store.io.sim.update, jstore.io.sim.update
