@@ -110,6 +110,40 @@ fleet_plane -- the fleet's device plane (``ClusterSim.run_device_plane``
               fleet_control`` (outage, degraded mode, autoscale, capacity
               plan; numpy on the host) at its default 2,000 queries, with
               its wall.
+train_path -- the training slice (``repro_torch.train_dlrm``,
+              ``repro_torch.lm_train``). (a) ``train_dlrm``'s arch at full
+              width (6 x 200,000 user + 3 x 100,000 item tables, D 64,
+              pooling 8, 96,342,849 parameters), batch 256, AdamW with
+              ``cosine_schedule(2e-3, warmup=50, total=40)`` and weight decay
+              1e-5, checkpoints every 20 steps under ``build/`` (removed at
+              the end): run A 40 steps uninterrupted; run B killed by its
+              failure hook at step 27; run B', a fresh ``Trainer`` on B's
+              directory, resumes from step 20 and must end equal to A bit for
+              bit in every leaf of params, ``m``, ``v`` and ``step``. The
+              first 5 steps again on the card (equal to A's losses) and on
+              the CPU: step 0's loss and global norm within 1e-5, every loss
+              within 1e-4, the largest param gap after step 5 printed. A
+              same-batch overfit of 5 steps (AdamW 2e-3) must descend. The
+              median step wall over steps 5-39 of A, a profile of 5 more
+              steps, ``CheckpointManager.save`` and ``restore`` seconds and
+              bytes. (b) ``microbatches=4`` against the plain step from A's
+              final state (AdamW 1e-4; indices fed batch-major, since both
+              split every batch leaf on its leading dim): the accumulated
+              grads (before clipping) within 1e-6 of the plain step's in
+              every element, loss within 1e-5, params within 1e-3. (c) Train to serve: A's trained user
+              tables go out through ``incremental_embedding_update``, are
+              read back with numpy into a ``DeviceServingEngine``
+              (``EngineConfig()``) on the card, and the trained model scores
+              4 batches of ``make_traffic(queries=128, batch=32,
+              item_batch=50)`` through ``serve_dlrm.serve``, every kernel
+              call shadowed by its plain version, each kernel once a batch
+              (counters zeroed just before, read just after). (d)
+              ``smollm-135m`` at full width through ``lm_train``'s path:
+              batch 8, seq 64, AdamW 1e-3, 10 steps on the card; step 0's
+              loss within 1e-4 of one CPU step; a 5-step same-batch overfit
+              descends; the median step wall and a profile. Then 3 steps at
+              ``train_4k``'s sequence (batch 8 x 4,096 tokens), finite
+              losses, their median wall and a profile of one more.
 6. flash_decode -- the decode-attention kernel against its plain version:
               f32, bf16 and the serving path's f32 query over a bf16
               cache, at the shapes of ``tests/test_kernels.py``, the
@@ -198,6 +232,17 @@ HOST_MIRROR_SETS = 24            # (c): sets the mirrored keys are drawn from
 # serving its share on its own device engine; the last host a mesh slice whose
 # shards share the one card
 FLEET_HOSTS, FLEET_MESH_SHARDS = 3, 2
+# train_path: repro_torch.train_dlrm's arch and optimizer (examples/train_dlrm.py:27-37)
+# and lm_train's smollm-135m path (examples/lm_train.py)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 256, 40, 20, 27
+TRAIN_CPU_STEPS, TRAIN_OVERFIT, TRAIN_PROFILED, TRAIN_MICROBATCHES = 5, 5, 5, 4
+TRAIN_TOL, TRAIN_CPU_TOL = 1e-5, 1e-4
+# loss and params: tests/test_arch_smoke.py:114-119; grads: every element, set
+# from the 1.9e-8 a CPU run at batch 256 shows (a wrong accumulation is off by
+# about the grads' own size, up to 6e-2 there)
+MICROBATCH_TOL = dict(loss=1e-5, params=1e-3, grads=1e-6)
+LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = "smollm-135m", 8, 64, 10
+LM_LONG_SEQ, LM_LONG_STEPS = 4_096, 3            # train_4k's sequence
 
 
 def emit(obj) -> None:
@@ -1479,6 +1524,310 @@ def fleet_plane(torch, np, smi, single) -> dict:
     return {"launches": launches, "err": kernel_err}
 
 
+def train_path(torch, np, smi) -> dict:
+    """Phase ``train_path``; returns the launches of its serving run (c) and
+    each kernel's largest difference from its plain version there."""
+    import shutil
+
+    from repro_torch import lm_train, serve_dlrm, train_dlrm
+    from repro_torch.checkpoint import (CheckpointManager,
+                                        incremental_embedding_update, latest_step)
+    from repro_torch.configs import get_config
+    from repro_torch.core.io_sim import DEVICES
+    from repro_torch.data import make_dlrm_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import dlrm
+    from repro_torch.optim import AdamW, TrainState, global_norm, make_train_step
+    from repro_torch.runtime.engine import DeviceServingEngine, EngineConfig
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    arch = train_dlrm.ARCH
+    root = os.path.join(ROOT, "build", "train_path")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(name, device="cuda", **kw):
+        return train_dlrm.build(arch, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                ckpt_dir=os.path.join(root, name), device=device,
+                                ckpt_every=TRAIN_CKPT_EVERY, **kw)
+
+    def batch(step, device):
+        raw = make_dlrm_batch(arch, TRAIN_BATCH, seed=0, step=step)
+        return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+
+    def steps(step_fn, state, nb, device, first=0, same=False):
+        """``nb`` steps from ``state``; returns it and each step's loss and
+        global norm (as floats, so each step is waited for)."""
+        out = []
+        for i in range(nb):
+            state, m = step_fn(state, batch(first if same else first + i, device))
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        return state, out
+
+    try:
+        # (a) runs A, B (killed at TRAIN_FAIL_AT) and B' (resumed), on the card
+        t0 = time.perf_counter()
+        a = trainer("a")
+        run_a = a.run()
+        torch.cuda.synchronize()
+        run_a_s = time.perf_counter() - t0
+
+        class Killed(RuntimeError):
+            pass
+
+        def kill(step):
+            if step == TRAIN_FAIL_AT:
+                raise Killed(f"step {step}")
+        try:
+            trainer("b", failure_hook=kill).run()
+            raise AssertionError("run B was not killed")
+        except Killed:
+            pass
+        if latest_step(os.path.join(root, "b")) != TRAIN_CKPT_EVERY:
+            raise AssertionError("run B left no checkpoint at step "
+                                 f"{TRAIN_CKPT_EVERY}")
+        b2 = trainer("b")
+        run_b2 = b2.run()
+        if (run_b2["metrics"][0]["step"], run_b2["final_step"]) != (TRAIN_CKPT_EVERY,
+                                                                     TRAIN_STEPS):
+            raise AssertionError(f"run B' ran steps {run_b2['metrics'][0]['step']}-"
+                                 f"{run_b2['final_step']}")
+        diff = [k for k, (x, y) in enumerate(zip(leaves(b2.state), leaves(a.state)))
+                if x.dtype != y.dtype or not torch.equal(x, y)]
+        if diff or len(leaves(a.state)) != 3 * len(leaves(a.state["params"])) + 1:
+            raise AssertionError(f"run B' differs from run A in leaves {diff}")
+        shutil.rmtree(os.path.join(root, "b"))
+        losses_a = [m["loss"] for m in run_a["metrics"]]
+        walls = [t * 1e3 for t in a.step_times[5:]]
+
+        # the first steps again on the card and on the CPU
+        fresh = trainer("fresh")
+        card5, card_m = steps(fresh.step_fn, fresh.state, TRAIN_CPU_STEPS, "cuda")
+        if [m[0] for m in card_m] != losses_a[:TRAIN_CPU_STEPS]:
+            raise AssertionError(f"card rerun {card_m} against run A {losses_a[:5]}")
+        t0 = time.perf_counter()
+        cpu = trainer("cpu", device="cpu")
+        cpu5, cpu_m = steps(cpu.step_fn, cpu.state, TRAIN_CPU_STEPS, "cpu")
+        cpu_s = time.perf_counter() - t0
+        gaps = {"step0_loss": abs(card_m[0][0] - cpu_m[0][0]),
+                "step0_global_norm": abs(card_m[0][1] - cpu_m[0][1]),
+                "loss": max(abs(x[0] - y[0]) for x, y in zip(card_m, cpu_m)),
+                "param_after_5": max(float((x.cpu() - y).abs().max())
+                                     for x, y in zip(leaves(card5["params"]),
+                                                     leaves(cpu5["params"])))}
+        if max(gaps["step0_loss"], gaps["step0_global_norm"]) > TRAIN_TOL or \
+                gaps["loss"] > TRAIN_CPU_TOL:
+            raise AssertionError(f"card vs CPU: {gaps}")
+        del cpu, cpu5, fresh, card5
+
+        # a same-batch overfit at the schedule's peak rate
+        opt = AdamW(lr=2e-3, weight_decay=1e-5)
+        init = dlrm.init_params(arch, device="cuda", generator=torch.Generator().manual_seed(0))
+        _, over = steps(make_train_step(lambda p, b: dlrm.loss_fn(p, b, arch), opt),
+                        TrainState(init, opt), TRAIN_OVERFIT, "cuda", same=True)
+        if not over[-1][0] < over[0][0]:
+            raise AssertionError(f"same-batch overfit did not descend: {over}")
+        del init
+
+        # a profile of TRAIN_PROFILED more steps from A's final state
+        prof_batches = [batch(TRAIN_STEPS + i, "cuda") for i in range(TRAIN_PROFILED)]
+
+        def profiled():
+            st = a.state
+            for b in prof_batches:
+                st, _ = a.step_fn(st, b)
+        prof = device_profile(torch, profiled, TRAIN_PROFILED)
+        wall_ms = statistics.median(walls)
+        prof["idle_share"] = (1.0 - prof["device_busy_us"] / (wall_ms * 1e3)
+                              if prof["device_ops"] else None)
+
+        # CheckpointManager.save and restore of A's state
+        mgr = CheckpointManager(os.path.join(root, "timing"), keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(a.state, TRAIN_STEPS)
+        save_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t0 = time.perf_counter()
+        restored, _ = mgr.restore(a.state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if not all(torch.equal(x, y) for x, y in zip(leaves(restored), leaves(a.state))):
+            raise AssertionError("restored checkpoint differs from the saved state")
+        del restored
+        shutil.rmtree(os.path.join(root, "timing"))
+        n_params = sum(x.numel() for x in leaves(a.state["params"]))
+        if n_params != arch.param_count():
+            raise AssertionError(f"{n_params} parameters, arch says {arch.param_count()}")
+        emit({"phase": "train_path", "part": "a_dlrm", "card": smi,
+              "params": n_params, "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+              "fail_at": TRAIN_FAIL_AT, "resumed_from": TRAIN_CKPT_EVERY,
+              "resumed_equals_uninterrupted": True, "leaves": len(leaves(a.state)),
+              "loss_first_last": [losses_a[0], losses_a[-1]],
+              "card_vs_cpu": gaps, "cpu_5_steps_s": cpu_s,
+              "overfit_losses": [m[0] for m in over],
+              "step_wall_ms_median_5_39": wall_ms, "step_wall_ms_min_max":
+              [min(walls), max(walls)], "run_a_s": run_a_s, "stragglers":
+              len(run_a["stragglers"]), "profile": prof,
+              "checkpoint": {"save_s": save_s, "restore_s": restore_s,
+                             "bytes": ckpt_bytes}})
+
+        # (b) microbatches=4 against the plain step from A's final state
+        def batch_major(loss_fn):
+            return lambda p, b: loss_fn(p, {**b, "indices": b["indices"].transpose(0, 1)})
+        loss = batch_major(lambda p, b: dlrm.loss_fn(p, b, arch))
+        opt = AdamW(lr=1e-4, weight_decay=1e-5)
+        mb_batch = batch(TRAIN_STEPS, "cuda")
+        mb_batch["indices"] = mb_batch["indices"].transpose(0, 1).contiguous()
+        grads = {"plain": [], "micro": []}
+
+        def keep(name):
+            def transform(g):          # the step's grads, before clipping
+                grads[name].append(g)
+                return g
+            return transform
+        plain_state, pm = make_train_step(loss, opt, grad_transform=keep("plain"))(
+            a.state, mb_batch)
+        micro_state, mm = make_train_step(loss, opt, microbatches=TRAIN_MICROBATCHES,
+                                          grad_transform=keep("micro"))(a.state, mb_batch)
+        mb_gap = {"loss": abs(float(pm["loss"]) - float(mm["loss"])),
+                  "params": max(float((x - y).abs().max()) for x, y in
+                                zip(leaves(plain_state["params"]),
+                                    leaves(micro_state["params"]))),
+                  "grads": max(float((x - y).abs().max()) for x, y in
+                               zip(leaves(grads["plain"][0]), leaves(grads["micro"][0])))}
+        grad_max = max(float(x.abs().max()) for x in leaves(grads["plain"][0]))
+        if any(mb_gap[k] >= MICROBATCH_TOL[k] for k in mb_gap):
+            raise AssertionError(f"microbatches={TRAIN_MICROBATCHES}: {mb_gap}")
+        del plain_state, micro_state, grads
+        emit({"phase": "train_path", "part": "b_microbatches", "card": smi,
+              "microbatches": TRAIN_MICROBATCHES, "gap": mb_gap, "bounds": MICROBATCH_TOL,
+              "grad_max_abs": grad_max})
+
+        # (c) train to serve: A's user tables through an incremental update,
+        # read back with numpy, served by the device engine, scored by the
+        # trained model
+        n_user = len(arch.user_tables)
+        user = {f"table_{i}": a.state["params"]["tables"][i] for i in range(n_user)}
+        upd = incremental_embedding_update(os.path.join(root, "a"), TRAIN_STEPS, user,
+                                           update_id=1)
+        read = {i: np.load(os.path.join(upd, f"table_{i}.npy")) for i in range(n_user)}
+        for i, arr in read.items():
+            if not torch.equal(torch.from_numpy(arr), user[f"table_{i}"].cpu()):
+                raise AssertionError(f"table_{i} read back differs")
+        model = dlrm.params_from_jax(dlrm.DLRM(arch, device="cuda"), a.state["params"])
+        engine = DeviceServingEngine({i: torch.from_numpy(arr).to("cuda")
+                                      for i, arr in read.items()},
+                                     DEVICES["nand_flash"], EngineConfig(),
+                                     torch_device="cuda")
+        traffic = serve_dlrm.make_traffic(arch, queries=128, batch=32, item_batch=50, seed=1)
+        restore, check, _ = shadowed_dlrm_kernels(torch, ops, ref)
+        try:
+            ops.reset_launch_counts()
+            served = serve_dlrm.serve(model, engine, traffic)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        finally:
+            restore()
+        kernel_err = check()
+        if any(launches[k] != len(traffic) for k in ("gather_pool", "cache_probe")):
+            raise AssertionError(f"train to serve: {launches}, want each kernel once a "
+                                 f"batch ({len(traffic)})")
+        for r in served:
+            if r.pooled.shape != (32, n_user, arch.embed_dim) or \
+                    not np.isfinite(r.pooled).all() or r.scores.shape != (50,) or \
+                    not np.isfinite(r.scores).all():
+                raise AssertionError("train to serve: pooled or scores malformed")
+        max_err = max(r.max_err for r in served)
+        if max_err > SERVE_TOL:
+            raise AssertionError(f"train to serve: pooled {max_err} from reference_pool")
+        emit({"phase": "train_path", "part": "c_train_to_serve", "card": smi,
+              "update": upd[len(ROOT) + 1:],
+              "tables": n_user, "batches": len(traffic), "launches": launches,
+              "kernel_vs_plain_per_call": kernel_err, "max_pool_err": max_err,
+              "hit_rate": engine.hit_rate,
+              "sm_ios": [sum(s.sm_ios for s in r.stats) for r in served],
+              "score_mean": float(np.mean([r.scores.mean() for r in served]))})
+        del model, engine, a, b2
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) smollm-135m at full width through lm_train's path
+    cfg = get_config(LM_TRAIN_ARCH)
+
+    def lm_batch(i, device):
+        return lm_train.lm_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, i, device)
+    t0 = time.perf_counter()
+    state, step = lm_train.build(cfg, device="cuda")
+    torch.cuda.synchronize()
+    lm_setup_s = time.perf_counter() - t0
+    init = state
+    lm_losses, lm_walls = [], []
+    for i in range(LM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, lm_batch(i, "cuda"))
+        lm_losses.append(float(m["loss"]))
+        lm_walls.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    cpu_state, cpu_step = lm_train.build(cfg, device="cpu")
+    _, cm = cpu_step(cpu_state, lm_batch(0, "cpu"))
+    lm_cpu_s = time.perf_counter() - t0
+    lm_gap = abs(float(cm["loss"]) - lm_losses[0])
+    if lm_gap > TRAIN_CPU_TOL or not all(np.isfinite(lm_losses)):
+        raise AssertionError(f"{LM_TRAIN_ARCH} step 0: card {lm_losses[0]}, CPU "
+                             f"{float(cm['loss'])}")
+    del cpu_state
+    st, over = init, []
+    for _ in range(TRAIN_OVERFIT):
+        st, m = step(st, lm_batch(0, "cuda"))
+        over.append(float(m["loss"]))
+    if not over[-1] < over[0]:
+        raise AssertionError(f"{LM_TRAIN_ARCH} same-batch overfit: {over}")
+    prof_batches = [lm_batch(LM_TRAIN_STEPS + i, "cuda") for i in range(TRAIN_PROFILED)]
+
+    def profiled():
+        st = state
+        for b in prof_batches:
+            st, _ = step(st, b)
+    prof = device_profile(torch, profiled, TRAIN_PROFILED)
+    lm_wall = statistics.median(lm_walls[2:])
+    prof["idle_share"] = (1.0 - prof["device_busy_us"] / (lm_wall * 1e3)
+                          if prof["device_ops"] else None)
+    del st, prof_batches
+
+    # the same step at train_4k's sequence, on the card only
+    long_losses, long_walls = [], []
+    st = init
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(LM_LONG_STEPS):
+        b = lm_train.lm_batch(cfg, LM_TRAIN_BATCH, LM_LONG_SEQ, i, "cuda")
+        t0 = time.perf_counter()
+        st, m = step(st, b)
+        long_losses.append(float(m["loss"]))
+        long_walls.append((time.perf_counter() - t0) * 1e3)
+    if not all(np.isfinite(long_losses)):
+        raise AssertionError(f"{LM_TRAIN_ARCH} at seq {LM_LONG_SEQ}: {long_losses}")
+    long_batch = lm_train.lm_batch(cfg, LM_TRAIN_BATCH, LM_LONG_SEQ, LM_LONG_STEPS, "cuda")
+    long_prof = device_profile(torch, lambda: step(st, long_batch), 1)
+    long_wall = statistics.median(long_walls[1:])
+    long_prof["idle_share"] = (1.0 - long_prof["device_busy_us"] / (long_wall * 1e3)
+                               if long_prof["device_ops"] else None)
+    emit({"phase": "train_path", "part": "d_lm_train", "card": smi, "arch": LM_TRAIN_ARCH,
+          "params": sum(x.numel() for x in leaves(state["params"])),
+          "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "losses": lm_losses,
+          "step0_card_vs_cpu": lm_gap, "overfit_losses": over,
+          "step_wall_ms_median_2_9": lm_wall, "setup_s": lm_setup_s,
+          "cpu_step_s": lm_cpu_s, "profile": prof,
+          "long": {"seq": LM_LONG_SEQ, "losses": long_losses, "step_walls_ms": long_walls,
+                   "step_wall_ms_median_1_2": long_wall, "profile": long_prof,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30},
+          "phase_s": time.perf_counter() - t_phase})
+    del state, init, st, long_batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": kernel_err}
+
+
 def lm_phases(torch, np, timer, smi) -> dict:
     """Phases 6-8; returns the ``flash_decode`` entry of the kernels line."""
     from repro_torch import serve_lm
@@ -1892,6 +2241,10 @@ def main() -> int:
     # fleet_plane: the trace routed over hosts, each on its own device engine
     fl = fleet_plane(torch, np, smi, tr)
 
+    # train_path: training at train_dlrm's full arch and smollm-135m's width,
+    # then the trained tables served through the DLRM kernels
+    tp = train_path(torch, np, smi)
+
     # 6-8. the LM decode path and its flash_decode kernel
     fd = lm_phases(torch, np, timer, smi)
 
@@ -1901,14 +2254,16 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_pool.cu",
          "replaces": "src/repro/kernels/gather_pool.py:57",
          "launches": launches["gather_pool"] + tr["launches"]["gather_pool"]
-         + sh["launches"]["gather_pool"] + hp["launches"]["gather_pool"] + fl["launches"]["gather_pool"],
+         + sh["launches"]["gather_pool"] + hp["launches"]["gather_pool"] + fl["launches"]["gather_pool"]
+         + tp["launches"]["gather_pool"],
          "launches_by_path": {"dlrm_uniform": launches["gather_pool"],
                               "trace_path": tr["launches"]["gather_pool"],
                               "sharded_path": sh["launches"]["gather_pool"],
                               "host_plane": hp["launches"]["gather_pool"],
-                              "fleet_plane": fl["launches"]["gather_pool"]},
+                              "fleet_plane": fl["launches"]["gather_pool"],
+                              "train_path": tp["launches"]["gather_pool"]},
          "max_abs_err": max(err["gather_pool"], tr["err"]["gather_pool"], sh["err"]["gather_pool"],
-                            hp["err"]["gather_pool"], fl["err"]["gather_pool"]),
+                            hp["err"]["gather_pool"], fl["err"]["gather_pool"], tp["err"]["gather_pool"]),
          **kernel_entry(times, "gather_pool", tr["times"]),
          "device_us_per_call_in_step": device_us["gather_pool"],
          "device_us_per_call_trace_path": tr["device_us"]["gather_pool"],
@@ -1918,14 +2273,16 @@ def main() -> int:
          "source": "src/repro_torch/csrc/cache_probe.cu",
          "replaces": "src/repro/kernels/cache_probe.py:58",
          "launches": launches["cache_probe"] + tr["launches"]["cache_probe"]
-         + sh["launches"]["cache_probe"] + hp["launches"]["cache_probe"] + fl["launches"]["cache_probe"],
+         + sh["launches"]["cache_probe"] + hp["launches"]["cache_probe"] + fl["launches"]["cache_probe"]
+         + tp["launches"]["cache_probe"],
          "launches_by_path": {"dlrm_uniform": launches["cache_probe"],
                               "trace_path": tr["launches"]["cache_probe"],
                               "sharded_path": sh["launches"]["cache_probe"],
                               "host_plane": hp["launches"]["cache_probe"],
-                              "fleet_plane": fl["launches"]["cache_probe"]},
+                              "fleet_plane": fl["launches"]["cache_probe"],
+                              "train_path": tp["launches"]["cache_probe"]},
          "max_abs_err": max(err["cache_probe"], tr["err"]["cache_probe"], sh["err"]["cache_probe"],
-                            hp["err"]["cache_probe"], fl["err"]["cache_probe"]),
+                            hp["err"]["cache_probe"], fl["err"]["cache_probe"], tp["err"]["cache_probe"]),
          **kernel_entry(times, "cache_probe", tr["times"]),
          "device_us_per_call_in_step": device_us["cache_probe"],
          "device_us_per_call_trace_path": tr["device_us"]["cache_probe"],

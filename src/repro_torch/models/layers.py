@@ -37,7 +37,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    # divide by a tensor: on CUDA a host-scalar divisor becomes a reciprocal multiply
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / \
+        torch.full((), head_dim, dtype=torch.float32, device=device)
     return 1.0 / (theta ** exponent)  # [head_dim // 2]
 
 

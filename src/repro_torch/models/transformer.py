@@ -1,4 +1,4 @@
-"""Dense-family LM: prefill logits and the decode step.
+"""Dense-family LM: prefill logits, the decode step and training.
 
 The port of the dense family of ``src/repro/models/transformer.py``: a
 llama-style decoder (GQA, SwiGLU or GELU MLP, optional QKV bias, tied or
@@ -7,19 +7,28 @@ one ``Block`` per layer; :func:`params_from_jax` loads the reference's
 ``init_params`` pytree (blocks stacked ``[L, ...]``). The reference scans
 the stacked blocks; here a Python loop walks them.
 
+Training (``forward(..., mode="train")``, :func:`lm_loss`, :func:`loss_fn`)
+runs with autograd on and recomputes each block (or each ``remat_span``
+group) in the backward through ``torch.utils.checkpoint``, as the
+reference's ``jax.checkpoint``. :func:`loss_fn` takes the reference's
+pytree itself, so the optimizer and the checkpoint see its key paths and
+its stacked ``[L, ...]`` leaves.
+
 Every other family (MoE, SSM, hybrid, VLM, encoder) raises
-``NotImplementedError``; so does training (remat, backward). This is the
-serving path.
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Mapping
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -34,7 +43,7 @@ def require_dense(cfg: ModelConfig) -> None:
         what = PENDING_FAMILIES.get(cfg.family, cfg.family)
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md module queue, item \"LM model zoo\": {what})")
+            f"(ROADMAP.md module queue, item 6 \"LM model zoo\": {what})")
 
 
 def block_shapes(cfg: ModelConfig) -> dict:
@@ -183,20 +192,77 @@ def _logits(model: LM, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, head)
 
 
-@torch.no_grad()
-def forward(model: LM, tokens: torch.Tensor, *, mode: str = "prefill") -> torch.Tensor:
-    """tokens [B, S] int -> logits [B, S, V], as the reference's
-    ``forward(..., mode="prefill")``. Training is not ported yet."""
-    if mode != "prefill":
-        raise NotImplementedError(f"mode {mode!r}: training (remat, backward) "
-                                  "is not ported yet; this is the serving path")
-    cfg = model.cfg
-    x = model.embed[tokens.long()]
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    for blk in model.blocks:
+class _TreeView:
+    """The reference's params pytree seen as an ``LM``: ``embed``,
+    ``final_norm``, ``lm_head`` and one view per layer of the stacked
+    ``[L, ...]`` block leaves (so gradients flow to the stacked leaves)."""
+
+    def __init__(self, params: Mapping, cfg: ModelConfig):
+        require_dense(cfg)
+        self.cfg = cfg
+        self.embed = params["embed"]
+        self.final_norm = params["final_norm"]
+        self.lm_head = None if cfg.tie_embeddings else params["lm_head"]
+        # unbind: its backward stacks the layers' grads in one operation
+        # (indexing each layer would zero-fill a whole [L, ...] grad per layer)
+        blocks = {name: ({n: v.unbind(0) for n, v in s.items()}
+                         if isinstance(s, Mapping) else s.unbind(0))
+                  for name, s in params["blocks"].items()}
+        self.blocks = [SimpleNamespace(**{
+            name: ({n: v[i] for n, v in s.items()} if isinstance(s, Mapping) else s[i])
+            for name, s in blocks.items()}) for i in range(cfg.num_layers)]
+
+
+def _run_blocks(blocks, x, positions, cfg) -> torch.Tensor:
+    for blk in blocks:
         x, _ = _attn_block(blk, x, positions, cfg)
+    return x
+
+
+def forward(model, tokens: torch.Tensor, *, mode: str = "prefill") -> torch.Tensor:
+    """tokens [B, S] int -> logits [B, S, V], as the reference's ``forward``.
+
+    ``mode="prefill"`` runs under ``no_grad``. ``mode="train"`` keeps
+    autograd on and recomputes in the backward each group of
+    ``cfg.remat_span`` blocks when it divides the depth, else each block
+    (``torch.utils.checkpoint``, non-reentrant), as the reference remats. ``model`` is an ``LM`` or
+    the view :func:`loss_fn` makes of a params pytree."""
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode {mode!r}: expected 'prefill' or 'train'")
+    cfg = model.cfg
+    B, S = tokens.shape
+    if mode == "prefill":
+        with torch.no_grad():
+            x = model.embed[tokens.long()]
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+            return _logits(model, _run_blocks(model.blocks, x, positions, cfg))
+    x = F.embedding(tokens.long(), model.embed)     # a deterministic backward on the card
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    L = cfg.num_layers
+    span = cfg.remat_span if L % cfg.remat_span == 0 else 1
+    for i in range(0, L, span):
+        x = checkpoint(_run_blocks, model.blocks[i:i + span], x, positions, cfg,
+                       use_reentrant=False)
     return _logits(model, x)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Cross entropy: logsumexp minus the label's logit, in f32, plus
+    ``aux_weight * aux``."""
+    x = logits.to(torch.float32)
+    lse = torch.logsumexp(x, dim=-1)                                  # [B, S]
+    label_logit = torch.gather(x, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - label_logit) + aux_weight * aux
+
+
+def loss_fn(params: Mapping, batch: Mapping, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's ``loss_fn`` on its params pytree: batch ``tokens``
+    and ``labels`` [B, S]. The dense family has no auxiliary loss."""
+    view = _TreeView(params, cfg)
+    logits = forward(view, batch["tokens"], mode="train")
+    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+    return lm_loss(logits, batch["labels"], aux)
 
 
 @dataclasses.dataclass

@@ -407,3 +407,56 @@ def test_fleet_device_plane_on_card(cuda, layout):
     assert kern == plain == run("cpu")
     assert [h["mesh_devices"] for h in kern[0]] == [1, 1, 2]
     assert all(0.0 < h["engine_hit_rate"] < 1.0 for h in kern[0])
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = dict(user_tables=(400,) * 3, item_tables=(400,) * 2, embed_dim=8,
+                  bottom_mlp=(16, 8), top_mlp=(16, 1), pooling=4)
+
+
+def _dlrm_trainer(device, ckpt_dir, total=12, failure_hook=None):
+    from repro_torch import train_dlrm
+    from repro_torch.models.dlrm import DLRMArch
+    return train_dlrm.build(DLRMArch(**TRAIN_ARCH), steps=total, batch=16,
+                            ckpt_dir=str(ckpt_dir), device=device, ckpt_every=4,
+                            failure_hook=failure_hook)
+
+
+def test_dlrm_train_steps_on_card_match_cpu(cuda, tmp_path):
+    """A few ``train_dlrm`` steps (AdamW, cosine schedule) on the card and
+    on the CPU from the same seed: every loss within 1e-5, every leaf 1e-5."""
+    from repro_torch.tree import leaves
+    card = _dlrm_trainer(cuda, tmp_path / "card", total=6)
+    cpu = _dlrm_trainer("cpu", tmp_path / "cpu", total=6)
+    a, b = card.run(), cpu.run()
+    for ma, mb in zip(a["metrics"], b["metrics"]):
+        assert abs(ma["loss"] - mb["loss"]) < 1e-5 and \
+            abs(ma["grad_norm"] - mb["grad_norm"]) < 1e-5
+    for x, y in zip(leaves(card.state), leaves(cpu.state)):
+        assert x.device.type == "cuda"
+        torch.testing.assert_close(x.cpu(), y, rtol=0, atol=1e-5)
+
+
+def test_dlrm_crash_resume_bitwise_on_card(cuda, tmp_path):
+    """A run killed at step 7 and resumed from its step-4 checkpoint ends
+    equal, bit for bit, to an uninterrupted run on the card."""
+    from repro_torch.tree import leaves
+
+    class Boom(RuntimeError):
+        pass
+
+    def fail(step):
+        if step == 7:
+            raise Boom()
+    with pytest.raises(Boom):
+        _dlrm_trainer(cuda, tmp_path / "b", failure_hook=fail).run()
+    resumed = _dlrm_trainer(cuda, tmp_path / "b")
+    out = resumed.run()
+    assert out["metrics"][0]["step"] == 4 and out["final_step"] == 12
+    ref = _dlrm_trainer(cuda, tmp_path / "a")
+    ref.run()
+    for x, y in zip(leaves(resumed.state), leaves(ref.state)):
+        assert torch.equal(x, y)

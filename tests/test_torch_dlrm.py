@@ -94,10 +94,12 @@ def test_forward_and_loss_match(pair):
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     batch = {"dense": jnp.asarray(dense), "indices": jnp.asarray(idx),
              "labels": jnp.asarray(labels)}
+    tp = jax.tree_util.tree_map(lambda x: torch.from_numpy(np.array(x)), params)
+    tb = {"dense": torch.from_numpy(dense), "indices": torch.from_numpy(idx),
+          "labels": torch.from_numpy(labels)}
     with torch.no_grad():
-        logit = model(torch.from_numpy(dense), torch.from_numpy(idx))
-        loss = model.loss_fn(torch.from_numpy(dense), torch.from_numpy(idx),
-                             torch.from_numpy(labels))
+        logit = tdlrm.forward(tp, tb, model.arch)
+        loss = tdlrm.loss_fn(tp, tb, model.arch)
     np.testing.assert_allclose(logit.numpy(),
                                np.asarray(jdlrm.forward(jp, batch, jarch)), **TOL)
     np.testing.assert_allclose(float(loss),

@@ -188,5 +188,5 @@ def test_other_families_are_not_ported_yet(family):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     model = TT.LM(get_config("smollm-135m").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        TT.forward(model, torch.zeros((1, 2), dtype=torch.int32), mode="train")
+    with pytest.raises(ValueError, match="mode"):          # training is ported now
+        TT.forward(model, torch.zeros((1, 2), dtype=torch.int32), mode="decode")
