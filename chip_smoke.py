@@ -169,6 +169,38 @@ train_path -- the training slice (``repro_torch.train_dlrm``,
               profile must show one ``flash_decode`` kernel per layer and no
               combine kernel.
 
+lm_families -- the MoE, SSM and hybrid LM families (``repro_torch.serve_lm``,
+              ``repro_torch.lm_train``) at full width, f32 weights from seed
+              0, one arch at a time, depth cut: ``deepseek-moe-16b`` 4 of 28
+              layers, ``mixtral-8x22b`` 1 of 56, ``mamba2-1.3b`` all 48,
+              ``zamba2-1.2b`` all 38. (a) f32 caches, 8 sequences x 16
+              positions on the card and on the CPU: every layer call of
+              steps 0, 1, 7 and 15 replayed on the card from the CPU's input
+              and cache, output and cache within 1e-4; for the MoE archs
+              the experts each token chose at each layer call equal (a
+              difference whose gates are within 1e-6 is reported as a tie;
+              any other fails); the logits within the end-to-end limit, the
+              larger of 1e-4 and twice the CPU's own decode-vs-prefill gap
+              on the same weights (the f32 rounding of 48 SSD layers at
+              full width reaches 1e-4 by itself). (b) The bf16 serving
+              cache through ``serve_lm.decode``, 8 x 128 positions into a
+              cache of 512: ``flash_decode`` launched exactly 4 x 128
+              (deepseek) and 6 x 128 (zamba2's shared-block calls) times,
+              none on mixtral's sliding window or mamba2 (counters zeroed
+              just before, read just after); on the two kernel paths none
+              with ``use_kernels=False``, and each call within 2e-2 of its
+              plain version on that call's inputs. (c) Decode against
+              prefill on the card over the 16 positions, f32, drops off:
+              within the end-to-end limit. (d) The median ``decode_step``
+              wall with and without the kernel, a profile (device busy µs,
+              operations, idle share, the MoE layers' share of device
+              time), and the kernel's, plain and SDPA times and bound at
+              the deepseek and zamba2 shapes. (e)
+              ``lm_train.build`` on each reduced config, step 0's loss card
+              vs CPU within 1e-4; one full-width ``mamba2-1.3b`` step at 4
+              layers, batch 2 x 512 tokens (two 256-token chunks), every
+              grad finite.
+
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failed check raises, so the script exits non-zero; without CUDA it exits
@@ -243,6 +275,18 @@ TRAIN_TOL, TRAIN_CPU_TOL = 1e-5, 1e-4
 MICROBATCH_TOL = dict(loss=1e-5, params=1e-3, grads=1e-6)
 LM_TRAIN_ARCH, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = "smollm-135m", 8, 64, 10
 LM_LONG_SEQ, LM_LONG_STEPS = 4_096, 3            # train_4k's sequence
+# lm_families: the MoE, SSM and hybrid archs at full width (f32 weights), each
+# arch's depth cut to fit the card and the phase's time (PERF.md section 4),
+# with the flash_decode calls a decode step makes: every layer of deepseek
+# (MHA, hd 128), every shared-block call of zamba2 (MHA, hd 64); none on
+# mixtral's sliding window (its ring goes through attention_core) or mamba2
+FAMILIES = {"deepseek-moe-16b": (4, 4), "mixtral-8x22b": (1, 0), "mamba2-1.3b": (48, 0),
+            "zamba2-1.2b": (38, 6)}
+FAMILY_BATCH, FAMILY_F32_TOKENS = 8, 16          # (a) card vs CPU and (c), f32 caches
+FAMILY_TOKENS, FAMILY_MAX_LEN = 128, 512         # (b) the bf16 serving cache
+FAMILY_TIMED, FAMILY_WARM, FAMILY_PROFILED = 24, 4, 4   # (d) steps in turns, profiled
+FAMILY_TIE_GAP = 1e-6                            # (a) a routing tie: gates this close
+FAMILY_TRAIN = ("mamba2-1.3b", 4, 2, 512)        # (e) arch, layers, batch, seq: 2 chunks
 
 
 def emit(obj) -> None:
@@ -1828,6 +1872,74 @@ def train_path(torch, np, smi) -> dict:
     return {"launches": launches, "err": kernel_err}
 
 
+def decode_inputs(torch, B, S, L, H, K, hd):
+    """bf16 q [B, H, hd], k/v [B, S, K, hd] from a generator seeded with S,
+    and kv_len L for every row, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(S)
+    q = torch.randn((B, H, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+    return q, k, v, torch.full((B,), L, dtype=torch.int32, device="cuda")
+
+
+def shape_times(torch, B, S, L, H, K, hd, t, reps) -> dict:
+    """``flash_decode`` at one shape (bf16, kv_len L of a cache of S): its
+    error against the plain version, kernel, plain and SDPA times, its split
+    plan and its bounds."""
+    from repro_torch.kernels import flash_decode as fd_module
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    q, k, v, kv_len = decode_inputs(torch, B, S, L, H, K, hd)
+    got = flash_decode(q, k, v, kv_len)
+    err = float((got - ref.flash_decode_ref(q, k, v, kv_len)).abs().max())
+    if err > FLASH_DECODE_TOL["bf16"]:
+        raise AssertionError(f"flash_decode at B {B}, S {S}, H {H}: error {err}")
+    lib, reason = sdpa_call(torch, q, k, v, L)
+    if lib is not None:
+        lib_err = float((lib()[:, :, 0].float() - got).abs().max())
+        if lib_err > FLASH_DECODE_TOL["bf16"]:
+            raise AssertionError(f"SDPA disagrees with the kernel by {lib_err}")
+    nbytes, nops = flash_decode_bytes_ops(q, k, kv_len)
+    tiles = fd_module.head_tiles(H // K)[0]
+    n_split = fd_module.split_count(B, K, S, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count, tiles)
+    out = {"shape": {"B": B, "S": S, "kv_len": L, "H": H, "K": K, "hd": hd,
+                     "dtype": "bf16"},
+           "splits": n_split, "busy_splits": fd_module.busy_splits(L, S, n_split, hd),
+           "head_tiles": tiles, "max_abs_err": err,
+           "ms": t.ms(lambda: flash_decode(q, k, v, kv_len), reps),
+           "plain_ms": t.ms(lambda: ref.flash_decode_ref(q, k, v, kv_len), reps),
+           "library_ms": t.ms(lib, reps) if lib is not None else None,
+           "library": "F.scaled_dot_product_attention(enable_gqa=True)"
+                      if lib is not None else reason,
+           "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_f32_ops_ms": nops / FP32_OPS_PER_S * 1e3}
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops, BF16_OPS_PER_S)
+    return out
+
+
+def shadowed_flash_decode(torch, ops, ref):
+    """Wrap ``ops.decode_attention`` so that each kernel call also runs the
+    plain version on the same inputs. Returns (restore, worst, calls):
+    ``worst`` holds the largest difference so far (on the card, no sync),
+    ``calls`` counts the calls."""
+    kernel_call = ops.decode_attention
+    worst = torch.zeros((), device="cuda")
+    calls = [0]
+
+    def shadowed(q, k, v, kv_len, *, use_kernel=True):
+        out = kernel_call(q, k, v, kv_len, use_kernel=use_kernel)
+        torch.maximum(worst, (out - ref.flash_decode_ref(q, k, v, kv_len)).abs().max(),
+                      out=worst)
+        calls[0] += 1
+        return out
+
+    def restore():
+        ops.decode_attention = kernel_call
+    ops.decode_attention = shadowed
+    return restore, worst, calls
+
+
 def lm_phases(torch, np, timer, smi) -> dict:
     """Phases 6-8; returns the ``flash_decode`` entry of the kernels line."""
     from repro_torch import serve_lm
@@ -1918,19 +2030,11 @@ def lm_phases(torch, np, timer, smi) -> dict:
     drift_by_pos = (kern - plain).abs().amax(dim=(0, 2))
     top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
     del kern, plain
-    worst = torch.zeros((), device="cuda")
-    kernel_call = ops.decode_attention
-
-    def shadowed(q, k, v, kv_len, *, use_kernel=True):
-        out = kernel_call(q, k, v, kv_len, use_kernel=use_kernel)
-        torch.maximum(worst, (out - ref.flash_decode_ref(q, k, v, kv_len)).abs().max(),
-                      out=worst)
-        return out
-    ops.decode_attention = shadowed
+    restore, worst, _ = shadowed_flash_decode(torch, ops, ref)
     try:
         serve_lm.decode(model, init_cache(cfg, B, S, device="cuda"), tok_gpu)
     finally:
-        ops.decode_attention = kernel_call
+        restore()
     per_call = float(worst)
     if per_call > FLASH_DECODE_TOL["path"]:
         raise AssertionError(f"flash_decode on the LM path: {per_call} from its plain "
@@ -1949,48 +2053,12 @@ def lm_phases(torch, np, timer, smi) -> dict:
 
     # 8. timing: the kernel at the path's shape, one decode_32k layer and one
     # granite-34b layer (G = 48, hd 128)
-    def decode_inputs(B, S, L, H, K, hd):
-        g = torch.Generator(device="cuda").manual_seed(S)
-        q = torch.randn((B, H, hd), generator=g, device="cuda", dtype=torch.bfloat16)
-        k = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
-        v = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
-        return q, k, v, torch.full((B,), L, dtype=torch.int32, device="cuda")
-
-    def shape_times(B, S, L, H, K, hd, t, reps):
-        q, k, v, kv_len = decode_inputs(B, S, L, H, K, hd)
-        got = flash_decode(q, k, v, kv_len)
-        err = float((got - ref.flash_decode_ref(q, k, v, kv_len)).abs().max())
-        if err > FLASH_DECODE_TOL["bf16"]:
-            raise AssertionError(f"flash_decode at B {B}, S {S}, H {H}: error {err}")
-        lib, reason = sdpa_call(torch, q, k, v, L)
-        if lib is not None:
-            lib_err = float((lib()[:, :, 0].float() - got).abs().max())
-            if lib_err > FLASH_DECODE_TOL["bf16"]:
-                raise AssertionError(f"SDPA disagrees with the kernel by {lib_err}")
-        nbytes, nops = flash_decode_bytes_ops(q, k, kv_len)
-        tiles = fd_module.head_tiles(H // K)[0]
-        n_split = fd_module.split_count(B, K, S, torch.cuda.get_device_properties(0)
-                                        .multi_processor_count, tiles)
-        out = {"shape": {"B": B, "S": S, "kv_len": L, "H": H, "K": K, "hd": hd,
-                         "dtype": "bf16"},
-               "splits": n_split, "busy_splits": fd_module.busy_splits(L, S, n_split, hd),
-               "head_tiles": tiles, "max_abs_err": err,
-               "ms": t.ms(lambda: flash_decode(q, k, v, kv_len), reps),
-               "plain_ms": t.ms(lambda: ref.flash_decode_ref(q, k, v, kv_len), reps),
-               "library_ms": t.ms(lib, reps) if lib is not None else None,
-               "library": "F.scaled_dot_product_attention(enable_gqa=True)"
-                          if lib is not None else reason,
-               "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_f32_ops_ms": nops / FP32_OPS_PER_S * 1e3}
-        out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops, BF16_OPS_PER_S)
-        return out
-
-    path_shape = shape_times(B, S, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+    path_shape = shape_times(torch, B, S, T, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                              timer, 0)
     d32 = SHAPES["decode_32k"]
-    long_shape = shape_times(d32.global_batch, d32.seq_len, d32.seq_len, cfg.num_heads,
+    long_shape = shape_times(torch, d32.global_batch, d32.seq_len, d32.seq_len, cfg.num_heads,
                              cfg.num_kv_heads, cfg.head_dim, timer, 10)
-    q, k, v, kv_len = decode_inputs(d32.global_batch, d32.seq_len, d32.seq_len,
+    q, k, v, kv_len = decode_inputs(torch, d32.global_batch, d32.seq_len, d32.seq_len,
                                     cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     split_count = fd_module.split_count
     long_shape["ms_by_splits"] = {}
@@ -2003,7 +2071,7 @@ def lm_phases(torch, np, timer, smi) -> dict:
         fd_module.split_count = split_count
     del q, k, v, kv_len
     g34 = get_config("granite-34b")
-    mqa_shape = shape_times(LM_BATCH, 8192, 8192, g34.num_heads, g34.num_kv_heads,
+    mqa_shape = shape_times(torch, LM_BATCH, 8192, 8192, g34.num_heads, g34.num_kv_heads,
                             g34.head_dim, timer, 10)
     torch.cuda.empty_cache()
 
@@ -2049,6 +2117,368 @@ def lm_phases(torch, np, timer, smi) -> dict:
             "plain_ms": path_shape["plain_ms"]["median"],
             "bound_ms": path_shape["bound_ms"], "bound_by": path_shape["bound_by"],
             "library_ms": (path_shape["library_ms"] or {}).get("median")}
+
+
+def moe_choices(torch, moe_mod):
+    """Record, at each MoE layer call, the experts each token chose
+    ([tokens, k], -1 where dropped) and its gates, on the host. Returns
+    (calls, restore)."""
+    assign = moe_mod.topk_assign
+    calls = []
+
+    def recorded(gates, top_k, capacity):
+        out = assign(gates, top_k, capacity)
+        token, expert, rnd, _ = out
+        G, S, E = gates.shape
+        choice = torch.full((G * S, top_k), -1, dtype=torch.int64, device=gates.device)
+        choice[token, rnd] = expert
+        calls.append((choice.cpu(), gates.reshape(G * S, E).cpu()))
+        return out
+
+    def restore():
+        moe_mod.topk_assign = assign
+    moe_mod.topk_assign = recorded
+    return calls, restore
+
+
+def routing_diffs(card_calls, cpu_calls) -> list:
+    """[call, token, card's experts, CPU's experts, gate gap] for each token
+    whose experts differ; the gap is the largest, over the rounds that
+    differ, of the CPU gates' difference between the two experts."""
+    if len(card_calls) != len(cpu_calls):
+        raise AssertionError(f"{len(card_calls)} MoE calls on the card, {len(cpu_calls)} "
+                             f"on the CPU")
+    diffs = []
+    for i, ((a, _), (c, gates)) in enumerate(zip(card_calls, cpu_calls)):
+        for tok in (a != c).any(dim=1).nonzero()[:, 0].tolist():
+            rounds = (a[tok] != c[tok]).nonzero()[:, 0]
+            gap = max(abs(float(gates[tok, a[tok, r]]) - float(gates[tok, c[tok, r]]))
+                      for r in rounds.tolist())
+            diffs.append([i, tok, a[tok].tolist(), c[tok].tolist(), gap])
+    return diffs
+
+
+def moe_device_share(torch, transformer_mod, run, nb: int) -> dict:
+    """Per step of ``run`` (``nb`` steps) under ``torch.profiler`` with host
+    and device activity: the device µs of the kernels launched inside the
+    MoE layers (``moe_ffn`` wrapped in a ``record_function``) against all
+    kernels' device µs."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    moe_ffn = transformer_mod.moe_ffn
+
+    def ranged(*args, **kw):
+        with record_function("moe_ffn"):
+            return moe_ffn(*args, **kw)
+    transformer_mod.moe_ffn = ranged
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        transformer_mod.moe_ffn = moe_ffn
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    moe_us = sum(e.device_time_total for e in events
+                 if e.device_type == cpu and e.name == "moe_ffn")
+    busy_us = sum(e.time_range.elapsed_us() for e in events
+                  if e.device_type == cuda and e.name != "moe_ffn")
+    return {"moe_device_us": moe_us / nb, "device_busy_us": busy_us / nb,
+            "moe_share": moe_us / busy_us if busy_us else None}
+
+
+def f32_decode(torch, serve_lm, T, moe_mod, model, cfg, tokens, routed: bool):
+    """``tokens`` decoded through ``model`` into an f32 cache of their
+    length: (logits, each MoE layer call's experts and gates if ``routed``)."""
+    calls, restore = moe_choices(torch, moe_mod) if routed else ([], lambda: None)
+    try:
+        logits = serve_lm.decode(model, T.init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                                                     torch.float32, tokens.device), tokens)
+    finally:
+        restore()
+    return logits, calls
+
+
+def record_units(torch, T, n_units: int, steps):
+    """Record, at the decode steps ``steps``, each layer call of
+    ``decode_step`` (an SSD layer or an attention block): its block, input,
+    cache before and after, output and (attention) position. A step's calls
+    are counted off ``n_units`` at a time. Returns (records, restore)."""
+    ssm_block, attn_block = T._ssm_block, T._attn_block
+    records, seen = [], [0]
+
+    def clone(cache):
+        return {k: v.clone() for k, v in cache.items()}
+
+    def keep():
+        step = seen[0] // n_units
+        seen[0] += 1
+        return step in steps
+
+    def ssm(blk, x, cfg, ssd_cache=None):
+        if ssd_cache is None or not keep():
+            return ssm_block(blk, x, cfg, ssd_cache=ssd_cache)
+        before = clone(ssd_cache)
+        out = ssm_block(blk, x, cfg, ssd_cache=ssd_cache)
+        records.append(("ssm", blk, x.clone(), before, out.clone(), clone(ssd_cache), None))
+        return out
+
+    def attn(blk, x, positions, cfg, kv_cache=None, cache_index=None, use_kernel=True):
+        if kv_cache is None or not keep():
+            return attn_block(blk, x, positions, cfg, kv_cache=kv_cache,
+                              cache_index=cache_index, use_kernel=use_kernel)
+        before = clone(kv_cache)
+        out = attn_block(blk, x, positions, cfg, kv_cache=kv_cache,
+                         cache_index=cache_index, use_kernel=use_kernel)
+        records.append(("attn", blk, x.clone(), before, out[0].clone(), clone(kv_cache),
+                        (positions.clone(), cache_index)))
+        return out
+
+    def restore():
+        T._ssm_block, T._attn_block = ssm_block, attn_block
+    T._ssm_block, T._attn_block = ssm, attn
+    return records, restore
+
+
+def replay_units(torch, T, records, blocks: dict, cfg) -> dict:
+    """Each recorded CPU layer call again on the card, from the CPU's input
+    and cache (``blocks`` maps a CPU block to the card's): the largest
+    difference of the outputs and of the caches after, by layer kind."""
+    worst = {}
+    with torch.no_grad():
+        for kind, blk, x, before, out, after, extra in records:
+            cache = {k: v.cuda() for k, v in before.items()}
+            if kind == "ssm":
+                got = T._ssm_block(blocks[id(blk)], x.cuda(), cfg, ssd_cache=cache)
+            else:
+                positions, index = extra
+                got, _, _ = T._attn_block(blocks[id(blk)], x.cuda(), positions.cuda(), cfg,
+                                          kv_cache=cache, cache_index=index)
+            gaps = [float((got.cpu() - out).abs().max())] + [
+                float((cache[k].cpu().float() - after[k].float()).abs().max()) for k in after]
+            worst[kind] = max(worst.get(kind, 0.0), *gaps)
+    return worst
+
+
+def lm_families(torch, np, timer, smi) -> dict:
+    """Phase ``lm_families``; returns the ``flash_decode`` launches of its
+    main runs (b) by arch, the kernel's largest difference from its plain
+    version there, and its times at the two new shapes."""
+    from repro_torch import lm_train, serve_lm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import value_and_grad
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    B, Tf, Tb, S = FAMILY_BATCH, FAMILY_F32_TOKENS, FAMILY_TOKENS, FAMILY_MAX_LEN
+    launches, err, times = {}, 0.0, {}
+    for arch, (depth, per_step) in FAMILIES.items():
+        t_arch = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+        t0 = time.perf_counter()
+        card = serve_lm.build(cfg, seed=0, torch_device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        host = T.LM(cfg, device="cpu", params=T.tree_of(card))
+        n_params = sum(p.numel() for p in card.parameters())
+        tokens = torch.from_numpy(serve_lm.make_tokens(cfg, batch=B, tokens=Tb, seed=1))
+        tok = tokens.cuda()
+
+        def finite(name, logits, n):
+            if tuple(logits.shape) != (B, n, cfg.vocab_size) or \
+                    not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{arch} {name}: logits {tuple(logits.shape)} not finite")
+
+        # (a) f32 caches: the card against the same run on the CPU; for the
+        # MoE archs the experts each token chose at each layer call; and every
+        # layer call of four steps (the first two, the middle, the last) again
+        # on the card from the CPU's input and cache
+        routed = cfg.family == "moe"
+        units = T._units(card)
+        layer_steps = (0, 1, Tf // 2 - 1, Tf - 1)
+        card_f32, card_calls = f32_decode(torch, serve_lm, T, moe_mod, card, cfg, tok[:, :Tf],
+                                          routed)
+        records, restore = record_units(torch, T, len(units), layer_steps)
+        t0 = time.perf_counter()
+        try:
+            cpu_f32, cpu_calls = f32_decode(torch, serve_lm, T, moe_mod, host, cfg,
+                                            tokens[:, :Tf], routed)
+        finally:
+            restore()
+        cpu_s = time.perf_counter() - t0
+        finite("card f32", card_f32, Tf)
+        finite("cpu f32", cpu_f32, Tf)
+        card_vs_cpu = float((card_f32.cpu() - cpu_f32).abs().max())
+        diffs = routing_diffs(card_calls, cpu_calls) if routed else []
+        if any(d[-1] >= FAMILY_TIE_GAP for d in diffs):
+            raise AssertionError(f"{arch}: experts chosen on the card and the CPU differ "
+                                 f"beyond a tie: {diffs[:8]}")
+        blocks = {id(h): c for (_, h), (_, c) in zip(T._units(host), units)}
+        by_layer = replay_units(torch, T, records, blocks, cfg)
+        if len(records) != len(units) * len(layer_steps) or \
+                max(by_layer.values()) > LM_CARD_VS_CPU_TOL:
+            raise AssertionError(f"{arch}: {len(records)} layer calls replayed on the card, "
+                                 f"largest gap {by_layer} > {LM_CARD_VS_CPU_TOL}")
+        del records, card_calls, cpu_calls
+        # the f32 reordering yardstick: the CPU's own decode against its
+        # prefill, drops off (a decode step routes one token a group, so it
+        # never drops); the end-to-end limits of (a) and (c) are
+        # LM_CARD_VS_CPU_TOL or twice it, whichever is larger
+        t0 = time.perf_counter()
+        host.cfg = card.cfg = dataclasses.replace(cfg, moe_capacity_factor=100.0)
+        try:
+            cpu_prefill = T.forward(host, tokens[:, :Tf])
+            # (c) decode against prefill on the card
+            prefill = T.forward(card, tok[:, :Tf])
+        finally:
+            host.cfg = card.cfg = cfg
+        yardstick = float((cpu_prefill - cpu_f32).abs().max())
+        limit = max(LM_CARD_VS_CPU_TOL, 2.0 * yardstick)
+        decode_vs_prefill = float((prefill - card_f32).abs().max())
+        prefill_s = time.perf_counter() - t0
+        if card_vs_cpu > limit or decode_vs_prefill > limit:
+            raise AssertionError(f"{arch}: f32 logits card vs CPU {card_vs_cpu}, decode vs "
+                                 f"prefill on the card {decode_vs_prefill}, limit {limit} "
+                                 f"(the CPU's decode vs prefill {yardstick})")
+        del host, cpu_f32, cpu_prefill, prefill, card_f32
+
+        # (b) the bf16 serving cache through serve_lm.decode: the main path,
+        # the plain version, then every kernel call shadowed
+        want = per_step * Tb
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        kern = serve_lm.decode(card, T.init_cache(cfg, B, S, device="cuda"), tok)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches[arch] = ops.launch_counts()["flash_decode"]
+        if launches[arch] != want:
+            raise AssertionError(f"{arch}: the path launched flash_decode {launches[arch]} "
+                                 f"times, not {want}")
+        finite("card bf16 kernel", kern, Tb)
+        drift = top1 = per_call = None
+        if per_step:                           # a path with the kernel on it
+            card.use_kernels = False
+            plain = serve_lm.decode(card, T.init_cache(cfg, B, S, device="cuda"), tok)
+            card.use_kernels = True
+            torch.cuda.synchronize()
+            if ops.launch_counts()["flash_decode"] != launches[arch]:
+                raise AssertionError(f"{arch}: use_kernels=False launched a kernel")
+            finite("card bf16 plain", plain, Tb)
+            drift = float((kern - plain).abs().max())
+            top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+            del plain
+            restore, worst, shadow_calls = shadowed_flash_decode(torch, ops, ref)
+            try:
+                serve_lm.decode(card, T.init_cache(cfg, B, S, device="cuda"), tok)
+            finally:
+                restore()
+            per_call = float(worst)
+            if shadow_calls[0] != want or per_call > FLASH_DECODE_TOL["path"]:
+                raise AssertionError(f"{arch}: {shadow_calls[0]} flash_decode calls (want "
+                                     f"{want}), {per_call} from the plain version")
+            err = max(err, per_call)
+        del kern
+
+        # (d) decode_step walls with and without the kernel, in turns, then
+        # profiles of the kernel's steps
+        caches = {"kernels": T.init_cache(cfg, B, S, device="cuda"),
+                  "plain": T.init_cache(cfg, B, S, device="cuda")}
+        walls = {"kernels": [], "plain": []}
+        for t in range(FAMILY_TIMED):
+            for name, cache in caches.items():
+                card.use_kernels = name == "kernels"
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                T.decode_step(card, cache, tok[:, t:t + 1], t)
+                torch.cuda.synchronize()
+                if t >= FAMILY_WARM:
+                    walls[name].append((time.perf_counter() - t0) * 1e3)
+        card.use_kernels = True
+        wall_ms = {k: statistics.median(v) for k, v in walls.items()}
+        cache = caches["kernels"]
+        p0 = FAMILY_TIMED
+
+        def steps(n):
+            nonlocal p0
+            for p in range(p0, p0 + n):
+                T.decode_step(card, cache, tok[:, p:p + 1], p)
+            p0 += n
+        prof = device_profile(torch, lambda: steps(FAMILY_PROFILED), FAMILY_PROFILED,
+                              named=("flash_decode",))
+        prof["idle_share"] = (1.0 - prof["device_busy_us"] / (wall_ms["kernels"] * 1e3)
+                              if prof["device_ops"] else None)
+        if prof["ops_named"]["flash_decode"] != per_step:
+            raise AssertionError(f"{arch}: {prof['ops_named']['flash_decode']} flash_decode "
+                                 f"kernels a step in the profile, not {per_step}")
+        if routed:
+            prof["moe"] = moe_device_share(torch, T, lambda: steps(FAMILY_PROFILED),
+                                           FAMILY_PROFILED)
+        if per_step:
+            times[arch] = shape_times(torch, B, S, Tb, cfg.num_heads, cfg.num_kv_heads,
+                                      cfg.head_dim, timer, 0)
+        emit({"phase": "lm_families", "part": "decode", "card": smi, "arch": arch,
+              "family": cfg.family, "layers": depth, "of_layers": get_config(arch).num_layers,
+              "params": n_params, "weights": "f32, seed 0", "batch": B,
+              "a_f32_positions": Tf, "a_card_vs_cpu_max_abs": card_vs_cpu,
+              "a_layer_steps": layer_steps, "a_layer_calls_replayed": len(units) * len(layer_steps),
+              "a_layer_card_vs_cpu_max_abs": by_layer,
+              "a_routing_diffs": diffs, "a_routing_ties": len(diffs),
+              "cpu_decode_vs_prefill_max_abs": yardstick, "end_to_end_limit": limit,
+              "c_decode_vs_prefill_max_abs": decode_vs_prefill,
+              "b_positions": Tb, "b_cache_len": S, "b_launches": launches[arch],
+              "b_kernel_vs_plain_per_call_max_abs": per_call,
+              "b_logits_max_abs_kernel_vs_plain": drift, "b_top1_agreement": top1,
+              "d_decode_step_ms_median": wall_ms,
+              "d_decode_step_ms_min": {k: min(v) for k, v in walls.items()},
+              "d_decode_steps": len(walls["kernels"]), "d_profile": prof,
+              "d_flash_decode": times.get(arch),
+              "build_s": build_s, "cpu_run_s": cpu_s, "prefill_s": prefill_s,
+              "path_s": path_s,
+              "arch_s": time.perf_counter() - t_arch})
+        del card, caches, cache
+        torch.cuda.empty_cache()
+
+    # (e) training: lm_train.build on each reduced config, card vs CPU; then
+    # a full-width mamba2 step over two 256-token chunks, every grad finite
+    step0 = {}
+    for arch in FAMILIES:
+        cfg = get_config(arch).reduced()
+        losses = []
+        for dev in ("cuda", "cpu"):
+            state, step = lm_train.build(cfg, device=dev)
+            _, m = step(state, lm_train.lm_batch(cfg, 2, 32, 0, dev))
+            losses.append(float(m["loss"]))
+        step0[arch] = losses
+        if not abs(losses[0] - losses[1]) <= TRAIN_CPU_TOL:
+            raise AssertionError(f"{cfg.name} step 0: card {losses[0]}, CPU {losses[1]}")
+    arch, depth, tb, ts = FAMILY_TRAIN
+    cfg = dataclasses.replace(get_config(arch), num_layers=depth)
+    state, step = lm_train.build(cfg, device="cuda")
+    batch = lm_train.lm_batch(cfg, tb, ts, 0, "cuda")
+    loss, grads = value_and_grad(lambda p, b: T.loss_fn(p, b, cfg), state["params"], batch)
+    bad = [i for i, g in enumerate(leaves(grads)) if not bool(torch.isfinite(g).all())]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = step(state, batch)
+    train_loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    if bad or not np.isfinite(float(loss)) or not np.isfinite(float(m["grad_norm"])):
+        raise AssertionError(f"{arch} at {depth} layers, chunk {cfg.ssm_chunk}, seq {ts}: "
+                             f"loss {float(loss)}, non-finite grads at leaves {bad}")
+    emit({"phase": "lm_families", "part": "e_training", "card": smi,
+          "step0_loss_card_cpu": step0, "full_width": {
+              "arch": arch, "layers": depth, "batch": tb, "seq": ts,
+              "ssm_chunk": cfg.ssm_chunk, "loss": float(loss), "step_loss": train_loss,
+              "grad_norm": float(m["grad_norm"]), "grad_leaves": len(leaves(grads)),
+              "all_grads_finite": not bad, "step_s": step_s},
+          "phase_s": time.perf_counter() - t_phase})
+    del state, grads
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err, "times": times}
 
 
 def main() -> int:
@@ -2248,6 +2678,9 @@ def main() -> int:
     # 6-8. the LM decode path and its flash_decode kernel
     fd = lm_phases(torch, np, timer, smi)
 
+    # lm_families: the MoE, SSM and hybrid LM families at full width
+    fam = lm_families(torch, np, timer, smi)
+
     emit({"phase": "done", "script_s": time.perf_counter() - t_script})
     emit({"kernels": [
         {"name": "gather_pool", "route": "cuda",
@@ -2290,7 +2723,14 @@ def main() -> int:
                                              for lay, us in sh["device_us"].items()}},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
-         "replaces": "src/repro/kernels/flash_decode.py:88", **fd},
+         "replaces": "src/repro/kernels/flash_decode.py:88",
+         **fd, "launches": fd["launches"] + sum(fam["launches"].values()),
+         "launches_by_path": {"lm_main_path": fd["launches"], "lm_families": fam["launches"]},
+         "max_abs_err": max(fd["max_abs_err"], fam["max_abs_err"]),
+         "lm_families": {arch: {k: t[k]["median"] if isinstance(t[k], dict) else t[k]
+                                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms")}
+                         for arch, t in fam["times"].items()}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

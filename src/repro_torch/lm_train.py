@@ -1,10 +1,9 @@
-"""Train a dense-family LM (reduced config unless ``--full``) on synthetic
-tokens.
+"""Train an LM of the dense, MoE, SSM or hybrid family (reduced config
+unless ``--full``) on synthetic tokens.
 
-The port of the reference's ``examples/lm_train.py`` for the dense family,
-with the same printed lines: AdamW 1e-3 over ``make_lm_batch`` batches
-(seed 0, step i). Other families raise ``NotImplementedError`` (ROADMAP
-item 6).
+The port of the reference's ``examples/lm_train.py``, with the same printed
+lines: AdamW 1e-3 over ``make_lm_batch`` batches (seed 0, step i). The VLM
+and encoder archs raise ``NotImplementedError`` (ROADMAP item 6).
 
 Run: PYTHONPATH=src python -m repro_torch.lm_train \
          [--arch smollm-135m --steps 30 --batch 8 --seq 64 --full --device cuda]
@@ -26,7 +25,7 @@ from repro_torch.tree import tree_map
 def build(cfg: ModelConfig, *, device="cuda"):
     """(state, step_fn): ``cfg``'s weights from a generator seeded with 0,
     on ``device``; AdamW at 1e-3."""
-    T.require_dense(cfg)
+    T.require_ported(cfg)
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev),
                       T.init_params(cfg, torch.Generator().manual_seed(0)))

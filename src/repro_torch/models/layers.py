@@ -183,20 +183,23 @@ def self_attention(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     return attention_out(params, attn), kv_cache
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, *, dtype=torch.bfloat16,
-                  device=None) -> dict:
-    """One layer's KV cache: ``k``/``v`` [B, S, K, hd] of ``dtype``, ``pos``
-    [B, S] int32 and ``valid`` [B, S] int8, all zero. A sliding-window
-    config caps S at its window."""
+def init_kv_cache(cfg, batch: int, max_len: int, n: int = 1, *, dtype=torch.bfloat16,
+                  device=None, keep_leading: bool = False) -> dict:
+    """A KV cache, zero: ``k``/``v`` [B, S, K, hd] of ``dtype``, ``pos``
+    [B, S] int32 and ``valid`` [B, S] int8. ``n`` leading replicas (one per
+    layer, or per shared-block call) add a leading [n] dim, which
+    ``keep_leading`` keeps at n = 1 too. A sliding-window config caps S at
+    its window."""
     K, hd = cfg.num_kv_heads, cfg.head_dim
     if cfg.sliding_window:
         max_len = min(max_len, cfg.sliding_window)
-    shape = (batch, max_len, K, hd)
+    lead = (n,) if n > 1 or keep_leading else ()
+    shape = lead + (batch, max_len, K, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "pos": torch.zeros((batch, max_len), dtype=torch.int32, device=device),
-        "valid": torch.zeros((batch, max_len), dtype=torch.int8, device=device),
+        "pos": torch.zeros(lead + (batch, max_len), dtype=torch.int32, device=device),
+        "valid": torch.zeros(lead + (batch, max_len), dtype=torch.int8, device=device),
     }
 
 

@@ -1,12 +1,14 @@
-"""Decode seeded token streams through a dense-family LM: the port's LM
-serving path end to end.
+"""Decode seeded token streams through an LM of the dense, MoE, SSM or
+hybrid family: the port's LM serving path end to end.
 
 ``decode`` feeds each sequence's tokens one position at a time through
-``decode_step`` (a KV cache per layer, decode attention through the
-``flash_decode`` CUDA kernel on the card), as the reference's decode step
-(``src/repro/launch/steps.py``) is driven in a loop. Weights are random from
-a seeded generator; tokens are seeded too. There is no prefill-to-cache
-path: the reference has none either.
+``decode_step``, as the reference's decode step
+(``src/repro/launch/steps.py``) is driven in a loop: a KV cache per
+attention layer (a window-sized ring for a sliding-window config), an SSD
+state per SSM layer, a KV cache per call of the hybrid's shared block;
+full-attention decode goes through the ``flash_decode`` CUDA kernel on the
+card. Weights are random from a seeded generator; tokens are seeded too.
+There is no prefill-to-cache path: the reference has none either.
 
 Run: PYTHONPATH=src python -m repro_torch.serve_lm \
          [--arch smollm-135m --batch 8 --tokens 256 --max-len 1024 --device cuda]
@@ -20,9 +22,9 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import DENSE_ARCHS, ModelConfig, get_config
+from repro_torch.configs import DECODE_ARCHS, ModelConfig, get_config
 from repro_torch.kernels import ops
-from repro_torch.models.transformer import LM, KVCache, decode_step, init_cache
+from repro_torch.models.transformer import LM, decode_step, init_cache
 
 
 def build(cfg: ModelConfig, *, seed: int = 0, torch_device="cuda") -> LM:
@@ -36,7 +38,7 @@ def make_tokens(cfg: ModelConfig, *, batch: int, tokens: int, seed: int) -> np.n
     return rng.integers(0, cfg.vocab_size, (batch, tokens)).astype(np.int32)
 
 
-def decode(model: LM, cache: KVCache, tokens: torch.Tensor) -> torch.Tensor:
+def decode(model: LM, cache, tokens: torch.Tensor) -> torch.Tensor:
     """Feed tokens [B, T] at positions 0..T-1 through ``decode_step`` one at
     a time. Returns logits [B, T, V] on the model's device."""
     B, T = tokens.shape
@@ -50,10 +52,11 @@ def decode(model: LM, cache: KVCache, tokens: torch.Tensor) -> torch.Tensor:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-135m", choices=DENSE_ARCHS)
+    ap.add_argument("--arch", default="smollm-135m", choices=DECODE_ARCHS)
     ap.add_argument("--batch", type=int, default=8, help="sequences decoded together")
     ap.add_argument("--tokens", type=int, default=256, help="positions decoded")
-    ap.add_argument("--max-len", type=int, default=1024, help="KV cache length")
+    ap.add_argument("--max-len", type=int, default=1024,
+                    help="KV cache length (capped at a sliding window)")
     ap.add_argument("--device", default="cuda", help="torch device")
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's tiny same-family config")
@@ -75,7 +78,7 @@ def main(argv=None) -> None:
     wall = time.perf_counter() - t0
     finite = bool(torch.isfinite(logits).all())
     print(f"decoded {args.tokens} positions x {args.batch} sequences of {cfg.name} "
-          f"on {device} (bf16 KV cache of {args.max_len})")
+          f"({cfg.family}) on {device} (bf16 cache, KV of {args.max_len})")
     print(f"  logits {tuple(logits.shape)}, finite: {finite}, "
           f"first top-1 tokens {top1[0, :8].tolist()}")
     print(f"  wall per step: {wall / max(1, args.tokens) * 1e3:.2f} ms (host clock)")

@@ -417,6 +417,41 @@ TRAIN_ARCH = dict(user_tables=(400,) * 3, item_tables=(400,) * 2, embed_dim=8,
                   bottom_mlp=(16, 8), top_mlp=(16, 1), pooling=4)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b", "mamba2-1.3b",
+                                  "zamba2-1.2b"])
+def test_lm_family_decode_on_card_matches_cpu(cuda, arch):
+    """The MoE, SSM and hybrid families decoded on the card and on the CPU
+    from one seed, f32 caches: logits within 1e-4; ``flash_decode`` once a
+    full-attention layer (or shared-block call) a step, never on mixtral's
+    window or mamba2."""
+    from repro_torch.models.transformer import _units
+    cfg = get_config(arch).reduced()
+    tokens = torch.from_numpy(serve_lm.make_tokens(cfg, batch=3, tokens=20, seed=5))
+    card = serve_lm.build(cfg, seed=1, torch_device=cuda)
+    host = serve_lm.build(cfg, seed=1, torch_device="cpu")
+    calls = 0 if cfg.sliding_window else sum(kind == "attn" for kind, _ in _units(card))
+    ops.reset_launch_counts()
+    got = serve_lm.decode(card, init_cache(cfg, 3, 37, dtype=torch.float32, device=cuda),
+                          tokens.to(cuda))
+    assert ops.launch_counts()["flash_decode"] == calls * 20
+    want = serve_lm.decode(host, init_cache(cfg, 3, 37, dtype=torch.float32, device="cpu"),
+                           tokens)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b", "mamba2-1.3b",
+                                  "zamba2-1.2b"])
+def test_lm_family_train_step_on_card_matches_cpu(cuda, arch):
+    from repro_torch import lm_train
+    cfg = get_config(arch).reduced()
+    losses = []
+    for dev in (cuda, "cpu"):
+        state, step = lm_train.build(cfg, device=dev)
+        _, m = step(state, lm_train.lm_batch(cfg, 2, 32, 0, dev))
+        losses.append(float(m["loss"]))
+    assert abs(losses[0] - losses[1]) < 1e-4, losses
+
+
 def _dlrm_trainer(device, ckpt_dir, total=12, failure_hook=None):
     from repro_torch import train_dlrm
     from repro_torch.models.dlrm import DLRMArch

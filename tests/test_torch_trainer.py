@@ -4,7 +4,7 @@ the synthetic data (``repro_torch.runtime.trainer``,
 ``tests/test_runtime.py``'s contracts on the port, checkpoints restored
 across the two packages both ways, batches bit for bit, and the
 ``train_dlrm`` entry point on the CPU."""
-import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +29,7 @@ from repro_torch.data import dlrm_batch_stream, make_dlrm_batch, make_lm_batch
 from repro_torch.models import dlrm as tdlrm
 from repro_torch.optim import AdamW, TrainState, make_train_step
 from repro_torch.runtime import Trainer, TrainerConfig
+from repro_torch.runtime import trainer as trainer_mod
 from repro_torch.tree import leaves, tree_map
 
 ARCH_FIELDS = dict(user_tables=(400,) * 3, item_tables=(400,) * 2, embed_dim=8,
@@ -128,17 +129,21 @@ def test_incremental_embedding_update(tmp_path):
     assert latest_step(str(tmp_path)) == 1
 
 
-def test_straggler_detection(tmp_path):
+def test_straggler_detection(tmp_path, monkeypatch):
+    """The trainer's clock is a fake one that each step advances by 10 ms,
+    and by 250 ms more at step 14: a wall clock shared with other test
+    processes moves the median step, and with it the ratio."""
     t = _make(tmp_path, total=16)
     seen = []
     t.straggler_hook = lambda step, ratio: seen.append((step, ratio))
     slow = {14}
+    clock = [0.0]
+    monkeypatch.setattr(trainer_mod, "time", SimpleNamespace(perf_counter=lambda: clock[0]))
 
     orig = t.step_fn
 
     def slow_step(state, batch):
-        if int(state["step"]) in slow:
-            time.sleep(0.25)
+        clock[0] += 0.010 + (0.25 if int(state["step"]) in slow else 0.0)
         return orig(state, batch)
     t.step_fn = slow_step
     out = t.run(resume=False)
