@@ -147,13 +147,16 @@ train_path -- the training slice (``repro_torch.train_dlrm``,
 6. flash_decode -- the decode-attention kernel against its plain version:
               f32, bf16 and the serving path's f32 query over a bf16
               cache, at the shapes of ``tests/test_kernels.py``, the
-              smollm-135m, granite-3-2b (G 4) and granite-34b (G 48, hd
-              128) shapes, ragged S, and kv_len 0, 1, S and > S; the
-              arrival counters are all 0 afterwards.
+              smollm-135m, granite-3-2b (G 4), granite-34b (G 48, hd
+              128) and llama-3.2-vision-90b (G 8, hd 128: self layers over
+              512 positions, cross layers over 1,601 image keys) shapes,
+              ragged S, and kv_len 0, 1, S and > S; the arrival counters
+              are all 0 afterwards.
 7. lm_main -- the LM serving path (``repro_torch.serve_lm``) at the full
               ``smollm-135m`` width: 8 sequences decoded for 256 positions
               of a 1,024-position cache. (a) f32 cache on the card against
-              the same run on the CPU, logits within 1e-4; (b) the serving
+              the same run on the CPU over the first 32 positions, logits
+              within 1e-4 (``flash_decode`` 30 x 32 times); (b) the serving
               bf16 cache: the kernel within 2e-2 of its plain version at
               each of the path's 7,680 calls, on that call's inputs, and
               the logits' gap to a ``use_kernels=False`` run and their
@@ -182,7 +185,12 @@ lm_families -- the MoE, SSM and hybrid LM families (``repro_torch.serve_lm``,
               any other fails); the logits within the end-to-end limit, the
               larger of 1e-4 and twice the CPU's own decode-vs-prefill gap
               on the same weights (the f32 rounding of 48 SSD layers at
-              full width reaches 1e-4 by itself). (b) The bf16 serving
+              full width reaches 1e-4 by itself). ``mamba2-1.3b`` runs (a)
+              and (c) at 32 positions against a float64 CPU copy of the
+              same weights instead: the recorded layer calls, the decode
+              and the prefill again in float64; the card's f32 decode and
+              prefill each within 3e-4 of it, the CPU's f32 errors beside
+              (the card's own f32 error told apart from the CPU's). (b) The bf16 serving
               cache through ``serve_lm.decode``, 8 x 128 positions into a
               cache of 512: ``flash_decode`` launched exactly 4 x 128
               (deepseek) and 6 x 128 (zamba2's shared-block calls) times,
@@ -200,6 +208,29 @@ lm_families -- the MoE, SSM and hybrid LM families (``repro_torch.serve_lm``,
               vs CPU within 1e-4; one full-width ``mamba2-1.3b`` step at 4
               layers, batch 2 x 512 tokens (two 256-token chunks), every
               grad finite.
+lm_vlm_encoder -- the VLM and encoder families at full width, f32 weights
+              from seed 0. ``llama-3.2-vision-90b`` cut to one section (its
+              cross layer and 5 of 100 self layers: the whole model is
+              104.8B parameters by ``param_count()``), every cross gate set
+              to 0.5 on both copies (the reference's init leaves it at 0,
+              where ``tanh(0)`` hides the cross layers from every logit),
+              the host's free memory checked first, 8 sequences with
+              ``make_images(seed=2)``: (a) 16 f32 positions card vs CPU, the
+              image K/V fill, the logits and every layer call of steps 0,
+              1, 7 and 15 replayed on the card within 1e-4; (b) 128
+              positions into a bf16 cache of 512, ``flash_decode`` launched
+              exactly 6 x 128 times (5 self calls and 1 cross call a step;
+              counters zeroed just before, read just after), none with
+              ``use_kernels=False``, each call within 2e-2 of its plain
+              version; (c) decode vs prefill on the card, f32, within 1e-4;
+              (d) the step wall with and without the kernel, a profile,
+              and the kernel's, plain and SDPA times and bounds at the
+              self shape and the cross shape (bf16 and f32).
+              ``hubert-xlarge`` uncut (48 layers): prefill of 8 x 1,000
+              frames timed and profiled, no kernel launched; card vs CPU
+              at 2 x 500 within 1e-4; one full-width train step at 8 x
+              1,000, every grad finite; the reduced configs' step-0 loss
+              card vs CPU (the encoder's within 1e-6).
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -232,7 +263,9 @@ BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
 FLASH_DECODE_TOL = {"f32": 1e-5, "bf16": 2e-2, "path": 2e-2}  # tests/test_kernels.py:124
 LM_CARD_VS_CPU_TOL = 1e-4
 LM_BATCH, LM_TOKENS, LM_MAX_LEN = 8, 256, 1024
+LM_F32_TOKENS = 32               # phase 7 (a): card vs CPU, f32 caches
 SPIN_CYCLES = 1_000_000          # about 0.5 ms at the H100's clock
+PROFILE_MARKS, PROFILE_MARK_CYCLES = 4096, 1_000  # device_profile's window marks
 # m1_batch: 128 queries of the paper's M1 (src/repro/configs/dlrm_models.py:4-19):
 # 61 user tables pooling 42 rows each, 128-byte rows (136 with scale and bias)
 M1_GATHER_POOL = dict(R=1 << 24, D=128, N=128 * 61, P=42)
@@ -283,10 +316,24 @@ LM_LONG_SEQ, LM_LONG_STEPS = 4_096, 3            # train_4k's sequence
 FAMILIES = {"deepseek-moe-16b": (4, 4), "mixtral-8x22b": (1, 0), "mamba2-1.3b": (48, 0),
             "zamba2-1.2b": (38, 6)}
 FAMILY_BATCH, FAMILY_F32_TOKENS = 8, 16          # (a) card vs CPU and (c), f32 caches
+# mamba2: (a) and (c) at 32 positions, held against a float64 CPU copy of the
+# same weights (every f32 cast of its path follows the input dtype): the card's
+# f32 decode and prefill each within FAMILY_F64_TOL of the float64 run's
+FAMILY_F64_ARCH, FAMILY_F64_TOKENS, FAMILY_F64_TOL = "mamba2-1.3b", 32, 3e-4
 FAMILY_TOKENS, FAMILY_MAX_LEN = 128, 512         # (b) the bf16 serving cache
 FAMILY_TIMED, FAMILY_WARM, FAMILY_PROFILED = 24, 4, 4   # (d) steps in turns, profiled
 FAMILY_TIE_GAP = 1e-6                            # (a) a routing tie: gates this close
 FAMILY_TRAIN = ("mamba2-1.3b", 4, 2, 512)        # (e) arch, layers, batch, seq: 2 chunks
+# lm_vlm_encoder: the VLM at full width cut to one section (its cross layer and
+# 5 of 100 self layers; the whole model is 104.8B parameters by param_count()),
+# every cross gate opened to VLM_GATE (the reference's init leaves it at 0,
+# where tanh(0) hides the cross layers from every logit); the encoder uncut
+VLM_ARCH, VLM_SECTIONS, VLM_GATE, VLM_IMAGE_SEED = "llama-3.2-vision-90b", 1, 0.5, 2
+VLM_BATCH, VLM_F32_TOKENS = 8, 16                # (a) card vs CPU and (c), f32 caches
+VLM_TOKENS, VLM_MAX_LEN = 128, 512               # (b) the bf16 serving cache
+ENC_ARCH, ENC_BATCH, ENC_FRAMES = "hubert-xlarge", 8, 1_000   # 20 s of audio at 50 Hz
+ENC_CPU_BATCH, ENC_CPU_FRAMES = 2, 500           # card vs CPU prefill
+ENC_STEP0_TOL = 1e-6                             # the reduced config's step-0 loss
 
 
 def emit(obj) -> None:
@@ -481,19 +528,37 @@ def device_profile(torch, run, nb: int, named=()):
     the device's busy time (one stream, so the sum of its kernels, copies and
     fills), the number of device operations, the heaviest ones by name, and
     the number and device µs of those whose name holds each string of
-    ``named``."""
+    ``named``.
+
+    The trace drops a varying number of the first kernel records of a
+    profile (0 to 60 of 64 back-to-back spin kernels in one full run, all of
+    256 by phase ``sharded_path`` of another, and two spin kernels 1 s apart
+    in a third; the first ``flash_decode`` of a VLM step once), however long
+    the host waits. So ``PROFILE_MARKS`` short spin kernels are launched and
+    waited for before ``run``, only the events after the last one recorded
+    count, and a trace that holds none of them raises; ``marks_lost`` says
+    how many were dropped."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:   # device events only
+        for _ in range(PROFILE_MARKS):
+            torch.cuda._sleep(PROFILE_MARK_CYCLES)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    if not marks:
+        raise AssertionError(f"the profiler dropped all {PROFILE_MARKS} spin kernels ahead "
+                             f"of the window: its first events may be missing too")
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    for e in events[marks[-1] + 1:]:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    return {"device_busy_us": sum(us for _, us in by_name.values()) / nb,
+    return {"marks_lost": PROFILE_MARKS - len(marks),
+            "device_busy_us": sum(us for _, us in by_name.values()) / nb,
             "device_ops": sum(n for n, _ in by_name.values()) / nb,
             "top_us": [[name[:70], n / nb, us / nb] for name, (n, us) in top],
             "ops_named": {key: sum(n for name, (n, _) in by_name.items() if key in name) / nb
@@ -609,7 +674,8 @@ def flash_decode_cases(torch, np, rng):
     shapes = [("mha", 1, 4, 4, 32, 512), ("gqa4", 2, 8, 2, 64, 1024),
               ("mqa", 2, 16, 1, 128, 512), ("smollm", 8, 9, 3, 64, 1024),
               ("ragged", 4, 9, 3, 64, 1000), ("ragged_hd16", 5, 6, 2, 16, 77),
-              ("granite_3_2b", 5, 32, 8, 64, 300), ("granite_34b", 4, 48, 1, 128, 1000)]
+              ("granite_3_2b", 5, 32, 8, 64, 300), ("granite_34b", 4, 48, 1, 128, 1000),
+              ("vlm_self", 8, 64, 8, 128, 512), ("vlm_cross", 8, 64, 8, 128, 1601)]
     dtypes = [("f32", torch.float32, torch.float32),
               ("bf16", torch.bfloat16, torch.bfloat16),
               ("path", torch.float32, torch.bfloat16)]   # f32 q over a bf16 cache
@@ -1872,39 +1938,42 @@ def train_path(torch, np, smi) -> dict:
     return {"launches": launches, "err": kernel_err}
 
 
-def decode_inputs(torch, B, S, L, H, K, hd):
-    """bf16 q [B, H, hd], k/v [B, S, K, hd] from a generator seeded with S,
-    and kv_len L for every row, on the card."""
+def decode_inputs(torch, B, S, L, H, K, hd, dtype=None):
+    """q [B, H, hd], k/v [B, S, K, hd] (bf16 unless ``dtype``) from a
+    generator seeded with S, and kv_len L for every row, on the card."""
+    dt = dtype or torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(S)
-    q = torch.randn((B, H, hd), generator=g, device="cuda", dtype=torch.bfloat16)
-    k = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
-    v = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn((B, H, hd), generator=g, device="cuda", dtype=dt)
+    k = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=dt)
+    v = torch.randn((B, S, K, hd), generator=g, device="cuda", dtype=dt)
     return q, k, v, torch.full((B,), L, dtype=torch.int32, device="cuda")
 
 
-def shape_times(torch, B, S, L, H, K, hd, t, reps) -> dict:
-    """``flash_decode`` at one shape (bf16, kv_len L of a cache of S): its
-    error against the plain version, kernel, plain and SDPA times, its split
-    plan and its bounds."""
+def shape_times(torch, B, S, L, H, K, hd, t, reps, dtype=None) -> dict:
+    """``flash_decode`` at one shape (bf16 unless ``dtype``, kv_len L of a
+    cache of S): its error against the plain version, kernel, plain and
+    SDPA times, its split plan and its bounds."""
     from repro_torch.kernels import flash_decode as fd_module
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_decode import flash_decode
-    q, k, v, kv_len = decode_inputs(torch, B, S, L, H, K, hd)
+    q, k, v, kv_len = decode_inputs(torch, B, S, L, H, K, hd, dtype)
+    f32 = q.dtype == torch.float32
+    tol = FLASH_DECODE_TOL["f32" if f32 else "bf16"]
     got = flash_decode(q, k, v, kv_len)
     err = float((got - ref.flash_decode_ref(q, k, v, kv_len)).abs().max())
-    if err > FLASH_DECODE_TOL["bf16"]:
+    if err > tol:
         raise AssertionError(f"flash_decode at B {B}, S {S}, H {H}: error {err}")
     lib, reason = sdpa_call(torch, q, k, v, L)
     if lib is not None:
         lib_err = float((lib()[:, :, 0].float() - got).abs().max())
-        if lib_err > FLASH_DECODE_TOL["bf16"]:
+        if lib_err > max(tol, 1e-4):
             raise AssertionError(f"SDPA disagrees with the kernel by {lib_err}")
     nbytes, nops = flash_decode_bytes_ops(q, k, kv_len)
     tiles = fd_module.head_tiles(H // K)[0]
     n_split = fd_module.split_count(B, K, S, torch.cuda.get_device_properties(0)
                                     .multi_processor_count, tiles)
     out = {"shape": {"B": B, "S": S, "kv_len": L, "H": H, "K": K, "hd": hd,
-                     "dtype": "bf16"},
+                     "dtype": "f32" if f32 else "bf16"},
            "splits": n_split, "busy_splits": fd_module.busy_splits(L, S, n_split, hd),
            "head_tiles": tiles, "max_abs_err": err,
            "ms": t.ms(lambda: flash_decode(q, k, v, kv_len), reps),
@@ -1914,8 +1983,15 @@ def shape_times(torch, B, S, L, H, K, hd, t, reps) -> dict:
                       if lib is not None else reason,
            "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
            "bound_f32_ops_ms": nops / FP32_OPS_PER_S * 1e3}
-    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops, BF16_OPS_PER_S)
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes, nops,
+                                                FP32_OPS_PER_S if f32 else BF16_OPS_PER_S)
     return out
+
+
+def shape_summary(t: dict) -> dict:
+    """The kernels line's numbers of one ``shape_times`` result: medians."""
+    return {k: t[k]["median"] if isinstance(t[k], dict) else t[k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
 
 def shadowed_flash_decode(torch, ops, ref):
@@ -1977,25 +2053,28 @@ def lm_phases(torch, np, timer, smi) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    def finite(name, logits):
-        if tuple(logits.shape) != (B, T, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+    def finite(name, logits, n=T):
+        if tuple(logits.shape) != (B, n, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{name}: logits {tuple(logits.shape)} not finite")
 
-    # (a) f32 cache: the card against the same run on the CPU
+    # (a) f32 cache: the card against the same run on the CPU, over the first
+    # LM_F32_TOKENS positions
+    Tf = LM_F32_TOKENS
     ops.reset_launch_counts()
-    card_f32 = serve_lm.decode(model, init_cache(cfg, B, S, torch.float32, "cuda"), tok_gpu)
+    card_f32 = serve_lm.decode(model, init_cache(cfg, B, S, torch.float32, "cuda"),
+                               tok_gpu[:, :Tf])
     torch.cuda.synchronize()
     launches_f32 = ops.launch_counts()["flash_decode"]
-    if launches_f32 != want_launches:
+    if launches_f32 != cfg.num_layers * Tf:
         raise AssertionError(f"f32 run launched flash_decode {launches_f32} times, "
-                             f"not {want_launches}")
+                             f"not {cfg.num_layers * Tf}")
     t0 = time.perf_counter()
     host = serve_lm.build(cfg, seed=0, torch_device="cpu")
-    cpu_f32 = serve_lm.decode(host, init_cache(cfg, B, S, torch.float32, "cpu"), tokens)
+    cpu_f32 = serve_lm.decode(host, init_cache(cfg, B, S, torch.float32, "cpu"), tokens[:, :Tf])
     cpu_s = time.perf_counter() - t0
     del host
-    finite("card f32", card_f32)
-    finite("cpu f32", cpu_f32)
+    finite("card f32", card_f32, Tf)
+    finite("cpu f32", cpu_f32, Tf)
     card_vs_cpu = float((card_f32.cpu() - cpu_f32).abs().max())
     if card_vs_cpu > LM_CARD_VS_CPU_TOL:
         raise AssertionError(f"f32-cache logits card vs CPU {card_vs_cpu} > "
@@ -2040,7 +2119,8 @@ def lm_phases(torch, np, timer, smi) -> dict:
         raise AssertionError(f"flash_decode on the LM path: {per_call} from its plain "
                              f"version > {FLASH_DECODE_TOL['path']}")
     emit({"phase": "lm_main_path", "arch": cfg.name, "layers": cfg.num_layers,
-          "batch": B, "positions": T, "cache_len": S, "weights": "f32, seed 0",
+          "batch": B, "positions": T, "f32_positions": Tf, "cache_len": S,
+          "weights": "f32, seed 0",
           "launches": launches, "launches_f32_run": launches_f32,
           "f32_cache_max_abs_card_vs_cpu": card_vs_cpu,
           "bf16_cache_kernel_vs_plain_per_call_max_abs": per_call,
@@ -2201,10 +2281,11 @@ def f32_decode(torch, serve_lm, T, moe_mod, model, cfg, tokens, routed: bool):
 
 def record_units(torch, T, n_units: int, steps):
     """Record, at the decode steps ``steps``, each layer call of
-    ``decode_step`` (an SSD layer or an attention block): its block, input,
-    cache before and after, output and (attention) position. A step's calls
-    are counted off ``n_units`` at a time. Returns (records, restore)."""
-    ssm_block, attn_block = T._ssm_block, T._attn_block
+    ``decode_step`` (an SSD layer, an attention block or a VLM cross layer):
+    its block, input, cache before and after, output and (attention)
+    position. A step's calls are counted off ``n_units`` at a time. Returns
+    (records, restore)."""
+    ssm_block, attn_block, cross_block = T._ssm_block, T._attn_block, T._cross_block_cached
     records, seen = [], [0]
 
     def clone(cache):
@@ -2234,10 +2315,38 @@ def record_units(torch, T, n_units: int, steps):
                         (positions.clone(), cache_index)))
         return out
 
+    def cross(blk, x, kv, cfg, use_kernel=True):
+        if not keep():
+            return cross_block(blk, x, kv, cfg, use_kernel=use_kernel)
+        out = cross_block(blk, x, kv, cfg, use_kernel=use_kernel)
+        records.append(("cross", blk, x.clone(), clone(kv), out.clone(), clone(kv), None))
+        return out
+
     def restore():
-        T._ssm_block, T._attn_block = ssm_block, attn_block
-    T._ssm_block, T._attn_block = ssm, attn
+        T._ssm_block, T._attn_block, T._cross_block_cached = ssm_block, attn_block, cross_block
+    T._ssm_block, T._attn_block, T._cross_block_cached = ssm, attn, cross
     return records, restore
+
+
+def rerun_unit(torch, T, record, blk, cfg, device, dtype=None):
+    """One recorded layer call again through ``blk`` on ``device``, from the
+    recorded input and cache (their floating tensors cast to ``dtype`` if
+    given): (output, cache after)."""
+    kind, _, x, before, _, _, extra = record
+
+    def move(t):                               # a copy: the call updates its cache
+        cast = dtype if dtype is not None and t.is_floating_point() else t.dtype
+        return t.to(device, cast, copy=True)
+    cache = {k: move(v) for k, v in before.items()}
+    with torch.no_grad():
+        if kind == "ssm":
+            return T._ssm_block(blk, move(x), cfg, ssd_cache=cache), cache
+        if kind == "cross":
+            return T._cross_block_cached(blk, move(x), cache, cfg), cache
+        positions, index = extra
+        got, _, _ = T._attn_block(blk, move(x), positions.to(device), cfg, kv_cache=cache,
+                                  cache_index=index)
+        return got, cache
 
 
 def replay_units(torch, T, records, blocks: dict, cfg) -> dict:
@@ -2245,19 +2354,111 @@ def replay_units(torch, T, records, blocks: dict, cfg) -> dict:
     and cache (``blocks`` maps a CPU block to the card's): the largest
     difference of the outputs and of the caches after, by layer kind."""
     worst = {}
-    with torch.no_grad():
-        for kind, blk, x, before, out, after, extra in records:
-            cache = {k: v.cuda() for k, v in before.items()}
-            if kind == "ssm":
-                got = T._ssm_block(blocks[id(blk)], x.cuda(), cfg, ssd_cache=cache)
-            else:
-                positions, index = extra
-                got, _, _ = T._attn_block(blocks[id(blk)], x.cuda(), positions.cuda(), cfg,
-                                          kv_cache=cache, cache_index=index)
-            gaps = [float((got.cpu() - out).abs().max())] + [
-                float((cache[k].cpu().float() - after[k].float()).abs().max()) for k in after]
-            worst[kind] = max(worst.get(kind, 0.0), *gaps)
+    for rec in records:
+        kind, blk, _, _, out, after, _ = rec
+        got, cache = rerun_unit(torch, T, rec, blocks[id(blk)], cfg, "cuda")
+        gaps = [float((got.cpu() - out).abs().max())] + [
+            float((cache[k].cpu().float() - after[k].float()).abs().max()) for k in after]
+        worst[kind] = max(worst.get(kind, 0.0), *gaps)
     return worst
+
+
+def f64_layer_gaps(torch, T, records, blocks64: dict, card_blocks: dict, cfg) -> dict:
+    """Each recorded CPU layer call again in float64 on the CPU (``blocks64``
+    maps a CPU block to its float64 copy's): the largest difference from it
+    of the card's f32 output on the same input and cache, and of the CPU's
+    recorded f32 output, by layer kind."""
+    card, cpu = {}, {}
+    for rec in records:
+        kind, blk, _, _, out, _, _ = rec
+        want, _ = rerun_unit(torch, T, rec, blocks64[id(blk)], cfg, "cpu", torch.float64)
+        got, _ = rerun_unit(torch, T, rec, card_blocks[id(blk)], cfg, "cuda")
+        card[kind] = max(card.get(kind, 0.0), float((got.cpu().double() - want).abs().max()))
+        cpu[kind] = max(cpu.get(kind, 0.0), float((out.double() - want).abs().max()))
+    return {"card_f32": card, "cpu_f32": cpu}
+
+
+def bf16_path_runs(torch, T, card, new_cache, tok, want: int, label: str, finite) -> dict:
+    """(b) of the LM family phases: the bf16 serving cache through
+    ``serve_lm.decode``, the main path, ``flash_decode`` launched exactly
+    ``want`` times (the counters zeroed just before, read just after); on a
+    path with the kernel, the plain version (``use_kernels=False``, no
+    launch) and then every kernel call shadowed by its plain version.
+    ``new_cache()`` gives a fresh cache; ``finite(name, logits)`` checks
+    the logits."""
+    from repro_torch import serve_lm
+    from repro_torch.kernels import ops, ref
+    cache = new_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kern = serve_lm.decode(card, cache, tok)
+    torch.cuda.synchronize()
+    out = {"path_s": time.perf_counter() - t0, "launches": ops.launch_counts()["flash_decode"],
+           "drift": None, "top1": None, "per_call": None}
+    if out["launches"] != want:
+        raise AssertionError(f"{label}: the path launched flash_decode {out['launches']} "
+                             f"times, not {want}")
+    finite("card bf16 kernel", kern)
+    if not want:
+        return out
+    cache = new_cache()
+    card.use_kernels = False
+    plain = serve_lm.decode(card, cache, tok)
+    card.use_kernels = True
+    torch.cuda.synchronize()
+    if ops.launch_counts()["flash_decode"] != out["launches"]:
+        raise AssertionError(f"{label}: use_kernels=False launched a kernel")
+    finite("card bf16 plain", plain)
+    out["drift"] = float((kern - plain).abs().max())
+    out["top1"] = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    del kern, plain
+    cache = new_cache()
+    restore, worst, shadow_calls = shadowed_flash_decode(torch, ops, ref)
+    try:
+        serve_lm.decode(card, cache, tok)
+    finally:
+        restore()
+    out["per_call"] = float(worst)
+    if shadow_calls[0] != want or out["per_call"] > FLASH_DECODE_TOL["path"]:
+        raise AssertionError(f"{label}: {shadow_calls[0]} flash_decode calls (want {want}), "
+                             f"{out['per_call']} from the plain version")
+    return out
+
+
+def step_walls(torch, T, card, new_cache, tok, per_step: int, label: str):
+    """(d) of the LM family phases: ``decode_step`` walls with and without
+    the kernel, in turns, over FAMILY_TIMED steps (the first FAMILY_WARM
+    untimed), then a profile of FAMILY_PROFILED more of the kernel's steps,
+    which must hold ``per_step`` ``flash_decode`` kernels a step. Returns
+    (walls, their medians, the profile, ``steps(n)`` running n more of the
+    kernel's steps)."""
+    caches = {"kernels": new_cache(), "plain": new_cache()}
+    walls = {"kernels": [], "plain": []}
+    for t in range(FAMILY_TIMED):
+        for name, c in caches.items():
+            card.use_kernels = name == "kernels"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T.decode_step(card, c, tok[:, t:t + 1], t)
+            torch.cuda.synchronize()
+            if t >= FAMILY_WARM:
+                walls[name].append((time.perf_counter() - t0) * 1e3)
+    card.use_kernels = True
+    wall_ms = {k: statistics.median(v) for k, v in walls.items()}
+    cache, p0 = caches["kernels"], [FAMILY_TIMED]
+
+    def steps(n):
+        for p in range(p0[0], p0[0] + n):
+            T.decode_step(card, cache, tok[:, p:p + 1], p)
+        p0[0] += n
+    prof = device_profile(torch, lambda: steps(FAMILY_PROFILED), FAMILY_PROFILED,
+                          named=("flash_decode",))
+    if prof["ops_named"]["flash_decode"] != per_step:
+        raise AssertionError(f"{label}: {prof['ops_named']['flash_decode']} flash_decode "
+                             f"kernels a step in the profile, not {per_step}")
+    prof["idle_share"] = (1.0 - prof["device_busy_us"] / (wall_ms["kernels"] * 1e3)
+                          if prof["device_ops"] else None)
+    return walls, wall_ms, prof, steps
 
 
 def lm_families(torch, np, timer, smi) -> dict:
@@ -2266,7 +2467,6 @@ def lm_families(torch, np, timer, smi) -> dict:
     version there, and its times at the two new shapes."""
     from repro_torch import lm_train, serve_lm
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as T
     from repro_torch.optim.optimizers import value_and_grad
@@ -2274,10 +2474,12 @@ def lm_families(torch, np, timer, smi) -> dict:
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    B, Tf, Tb, S = FAMILY_BATCH, FAMILY_F32_TOKENS, FAMILY_TOKENS, FAMILY_MAX_LEN
+    B, Tb, S = FAMILY_BATCH, FAMILY_TOKENS, FAMILY_MAX_LEN
     launches, err, times = {}, 0.0, {}
     for arch, (depth, per_step) in FAMILIES.items():
         t_arch = time.perf_counter()
+        f64 = arch == FAMILY_F64_ARCH
+        Tf = FAMILY_F64_TOKENS if f64 else FAMILY_F32_TOKENS
         cfg = dataclasses.replace(get_config(arch), num_layers=depth)
         t0 = time.perf_counter()
         card = serve_lm.build(cfg, seed=0, torch_device="cuda")
@@ -2323,6 +2525,24 @@ def lm_families(torch, np, timer, smi) -> dict:
                 max(by_layer.values()) > LM_CARD_VS_CPU_TOL:
             raise AssertionError(f"{arch}: {len(records)} layer calls replayed on the card, "
                                  f"largest gap {by_layer} > {LM_CARD_VS_CPU_TOL}")
+        yard64 = None
+        if f64:
+            # the float64 yardstick: a float64 CPU copy of the same weights
+            # replays (a)'s recorded layer calls, decodes the same positions
+            # and prefills them
+            t0 = time.perf_counter()
+            host64 = T.LM(cfg, device="cpu", params=T.tree_of(host)).double()
+            blocks64 = {id(h): h64 for (_, h), (_, h64) in zip(T._units(host), T._units(host64))}
+            layer64 = f64_layer_gaps(torch, T, records, blocks64, blocks, cfg)
+            dec64 = serve_lm.decode(host64, T.init_cache(cfg, B, Tf, torch.float64, "cpu"),
+                                    tokens[:, :Tf])
+            pre64 = T.forward(host64, tokens[:, :Tf])
+            del host64, blocks64
+            yard64 = {"layers": layer64,
+                      "decode": {"card_f32": float((card_f32.cpu().double() - dec64).abs().max()),
+                                 "cpu_f32": float((cpu_f32.double() - dec64).abs().max())},
+                      "f64_decode_vs_prefill": float((dec64 - pre64).abs().max()),
+                      "f64_s": time.perf_counter() - t0}
         del records, card_calls, cpu_calls
         # the f32 reordering yardstick: the CPU's own decode against its
         # prefill, drops off (a decode step routes one token a group, so it
@@ -2340,6 +2560,18 @@ def lm_families(torch, np, timer, smi) -> dict:
         limit = max(LM_CARD_VS_CPU_TOL, 2.0 * yardstick)
         decode_vs_prefill = float((prefill - card_f32).abs().max())
         prefill_s = time.perf_counter() - t0
+        if yard64 is not None:
+            # mamba2: (a) and (c) held against the float64 run, each run of
+            # the card within FAMILY_F64_TOL of it (so card vs CPU and
+            # decode vs prefill within twice that)
+            yard64["prefill"] = {"card_f32": float((prefill.cpu().double() - pre64).abs().max()),
+                                 "cpu_f32": float((cpu_prefill.double() - pre64).abs().max())}
+            limit = 2.0 * FAMILY_F64_TOL
+            card64 = max(yard64["decode"]["card_f32"], yard64["prefill"]["card_f32"])
+            if card64 > FAMILY_F64_TOL:
+                raise AssertionError(f"{arch}: the card's f32 run {card64} from the float64 "
+                                     f"run > {FAMILY_F64_TOL}: {yard64}")
+            del dec64, pre64
         if card_vs_cpu > limit or decode_vs_prefill > limit:
             raise AssertionError(f"{arch}: f32 logits card vs CPU {card_vs_cpu}, decode vs "
                                  f"prefill on the card {decode_vs_prefill}, limit {limit} "
@@ -2348,72 +2580,17 @@ def lm_families(torch, np, timer, smi) -> dict:
 
         # (b) the bf16 serving cache through serve_lm.decode: the main path,
         # the plain version, then every kernel call shadowed
-        want = per_step * Tb
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        kern = serve_lm.decode(card, T.init_cache(cfg, B, S, device="cuda"), tok)
-        torch.cuda.synchronize()
-        path_s = time.perf_counter() - t0
-        launches[arch] = ops.launch_counts()["flash_decode"]
-        if launches[arch] != want:
-            raise AssertionError(f"{arch}: the path launched flash_decode {launches[arch]} "
-                                 f"times, not {want}")
-        finite("card bf16 kernel", kern, Tb)
-        drift = top1 = per_call = None
-        if per_step:                           # a path with the kernel on it
-            card.use_kernels = False
-            plain = serve_lm.decode(card, T.init_cache(cfg, B, S, device="cuda"), tok)
-            card.use_kernels = True
-            torch.cuda.synchronize()
-            if ops.launch_counts()["flash_decode"] != launches[arch]:
-                raise AssertionError(f"{arch}: use_kernels=False launched a kernel")
-            finite("card bf16 plain", plain, Tb)
-            drift = float((kern - plain).abs().max())
-            top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-            del plain
-            restore, worst, shadow_calls = shadowed_flash_decode(torch, ops, ref)
-            try:
-                serve_lm.decode(card, T.init_cache(cfg, B, S, device="cuda"), tok)
-            finally:
-                restore()
-            per_call = float(worst)
-            if shadow_calls[0] != want or per_call > FLASH_DECODE_TOL["path"]:
-                raise AssertionError(f"{arch}: {shadow_calls[0]} flash_decode calls (want "
-                                     f"{want}), {per_call} from the plain version")
-            err = max(err, per_call)
-        del kern
+        def new_cache():
+            return T.init_cache(cfg, B, S, device="cuda")
+        runs = bf16_path_runs(torch, T, card, new_cache, tok, per_step * Tb, arch,
+                              lambda name, logits: finite(name, logits, Tb))
+        launches[arch] = runs["launches"]
+        if per_step:
+            err = max(err, runs["per_call"])
 
         # (d) decode_step walls with and without the kernel, in turns, then
         # profiles of the kernel's steps
-        caches = {"kernels": T.init_cache(cfg, B, S, device="cuda"),
-                  "plain": T.init_cache(cfg, B, S, device="cuda")}
-        walls = {"kernels": [], "plain": []}
-        for t in range(FAMILY_TIMED):
-            for name, cache in caches.items():
-                card.use_kernels = name == "kernels"
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                T.decode_step(card, cache, tok[:, t:t + 1], t)
-                torch.cuda.synchronize()
-                if t >= FAMILY_WARM:
-                    walls[name].append((time.perf_counter() - t0) * 1e3)
-        card.use_kernels = True
-        wall_ms = {k: statistics.median(v) for k, v in walls.items()}
-        cache = caches["kernels"]
-        p0 = FAMILY_TIMED
-
-        def steps(n):
-            nonlocal p0
-            for p in range(p0, p0 + n):
-                T.decode_step(card, cache, tok[:, p:p + 1], p)
-            p0 += n
-        prof = device_profile(torch, lambda: steps(FAMILY_PROFILED), FAMILY_PROFILED,
-                              named=("flash_decode",))
-        prof["idle_share"] = (1.0 - prof["device_busy_us"] / (wall_ms["kernels"] * 1e3)
-                              if prof["device_ops"] else None)
-        if prof["ops_named"]["flash_decode"] != per_step:
-            raise AssertionError(f"{arch}: {prof['ops_named']['flash_decode']} flash_decode "
-                                 f"kernels a step in the profile, not {per_step}")
+        walls, wall_ms, prof, steps = step_walls(torch, T, card, new_cache, tok, per_step, arch)
         if routed:
             prof["moe"] = moe_device_share(torch, T, lambda: steps(FAMILY_PROFILED),
                                            FAMILY_PROFILED)
@@ -2428,18 +2605,20 @@ def lm_families(torch, np, timer, smi) -> dict:
               "a_layer_card_vs_cpu_max_abs": by_layer,
               "a_routing_diffs": diffs, "a_routing_ties": len(diffs),
               "cpu_decode_vs_prefill_max_abs": yardstick, "end_to_end_limit": limit,
+              "f64_yardstick": yard64, "f64_tolerance": FAMILY_F64_TOL if f64 else None,
               "c_decode_vs_prefill_max_abs": decode_vs_prefill,
               "b_positions": Tb, "b_cache_len": S, "b_launches": launches[arch],
-              "b_kernel_vs_plain_per_call_max_abs": per_call,
-              "b_logits_max_abs_kernel_vs_plain": drift, "b_top1_agreement": top1,
+              "b_kernel_vs_plain_per_call_max_abs": runs["per_call"],
+              "b_logits_max_abs_kernel_vs_plain": runs["drift"],
+              "b_top1_agreement": runs["top1"],
               "d_decode_step_ms_median": wall_ms,
               "d_decode_step_ms_min": {k: min(v) for k, v in walls.items()},
               "d_decode_steps": len(walls["kernels"]), "d_profile": prof,
               "d_flash_decode": times.get(arch),
               "build_s": build_s, "cpu_run_s": cpu_s, "prefill_s": prefill_s,
-              "path_s": path_s,
+              "path_s": runs["path_s"],
               "arch_s": time.perf_counter() - t_arch})
-        del card, caches, cache
+        del card, steps
         torch.cuda.empty_cache()
 
     # (e) training: lm_train.build on each reduced config, card vs CPU; then
@@ -2479,6 +2658,231 @@ def lm_families(torch, np, timer, smi) -> dict:
     del state, grads
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": err, "times": times}
+
+
+def host_memory_gb() -> dict:
+    """The host's memory as ``free -g`` reports it: total, used, available."""
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    fields = next(line.split() for line in out.splitlines() if line.startswith("Mem:"))
+    return {"total": int(fields[1]), "used": int(fields[2]), "available": int(fields[-1])}
+
+
+def lm_vlm_encoder(torch, np, timer, smi) -> dict:
+    """Phase ``lm_vlm_encoder``; returns the ``flash_decode`` launches of
+    its main run (b), the kernel's largest difference from its plain
+    version there, and its times at the VLM's two shapes."""
+    from repro_torch import lm_train, serve_lm
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import value_and_grad
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    B, Tf, Tb, S = VLM_BATCH, VLM_F32_TOKENS, VLM_TOKENS, VLM_MAX_LEN
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_SECTIONS * full.cross_attn_every)
+    memory = host_memory_gb()
+    need_gb = 1.2 * cfg.param_count() * 4 / 2**30   # the draw, then the CPU copy
+    if memory["available"] < need_gb:
+        raise AssertionError(f"{VLM_ARCH}: {memory['available']} GiB of host memory "
+                             f"available, the section's f32 weights need {need_gb:.1f}")
+    t0 = time.perf_counter()
+    card = serve_lm.build(cfg, seed=0, torch_device="cuda")
+    with torch.no_grad():                      # seeded, nonzero, on both copies
+        for blk in card.cross:
+            blk.gate.fill_(VLM_GATE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    host = T.LM(cfg, device="cpu", params=T.tree_of(card))
+    n_params = sum(p.numel() for p in card.parameters())
+    tokens = torch.from_numpy(serve_lm.make_tokens(cfg, batch=B, tokens=Tb, seed=1))
+    images = torch.from_numpy(serve_lm.make_images(cfg, batch=B, seed=VLM_IMAGE_SEED))
+    tok, img = tokens.cuda(), images.cuda()
+    units = T._units(card)
+    want = len(units) * Tb                     # 5 self calls and 1 cross call a step
+
+    def finite(name, logits, n):
+        if tuple(logits.shape) != (B, n, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{VLM_ARCH} {name}: logits {tuple(logits.shape)} not finite")
+
+    # (a) f32 caches: the image K/V fill, the logits, and every layer call of
+    # four steps replayed on the card from the CPU's input and cache
+    layer_steps = (0, 1, Tf // 2 - 1, Tf - 1)
+    card_cache = T.init_cache(cfg, B, Tf, torch.float32, "cuda")
+    cpu_cache = T.init_cache(cfg, B, Tf, torch.float32, "cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve_lm.fill_images(card, card_cache, tok, img)
+    torch.cuda.synchronize()
+    fill_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_lm.fill_images(host, cpu_cache, tokens, images)
+    fill_cpu_s = time.perf_counter() - t0
+    fill_gap = max(float((card_cache.cross_k.cpu() - cpu_cache.cross_k).abs().max()),
+                   float((card_cache.cross_v.cpu() - cpu_cache.cross_v).abs().max()))
+    card_f32 = serve_lm.decode(card, card_cache, tok[:, :Tf])
+    records, restore = record_units(torch, T, len(units), layer_steps)
+    t0 = time.perf_counter()
+    try:
+        cpu_f32 = serve_lm.decode(host, cpu_cache, tokens[:, :Tf])
+    finally:
+        restore()
+    cpu_s = time.perf_counter() - t0
+    finite("card f32", card_f32, Tf)
+    finite("cpu f32", cpu_f32, Tf)
+    card_vs_cpu = float((card_f32.cpu() - cpu_f32).abs().max())
+    blocks = {id(h): c for (_, h), (_, c) in zip(T._units(host), units)}
+    by_layer = replay_units(torch, T, records, blocks, cfg)
+    if len(records) != len(units) * len(layer_steps) or \
+            max(fill_gap, card_vs_cpu, *by_layer.values()) > LM_CARD_VS_CPU_TOL:
+        raise AssertionError(f"{VLM_ARCH}: image K/V card vs CPU {fill_gap}, logits "
+                             f"{card_vs_cpu}, {len(records)} layer calls replayed, largest "
+                             f"gap {by_layer}; limit {LM_CARD_VS_CPU_TOL}")
+    del records, host, cpu_cache, cpu_f32
+    # (c) decode against prefill on the card, f32
+    t0 = time.perf_counter()
+    prefill = T.forward(card, tok[:, :Tf], images=img)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    decode_vs_prefill = float((prefill - card_f32).abs().max())
+    if decode_vs_prefill > LM_CARD_VS_CPU_TOL:
+        raise AssertionError(f"{VLM_ARCH}: decode vs prefill on the card {decode_vs_prefill}")
+    del prefill, card_f32, card_cache
+
+    # (b) the bf16 serving cache, its image K/V filled first: the main path,
+    # the plain version, then every kernel call shadowed
+    def bf16_cache():
+        return serve_lm.fill_images(card, T.init_cache(cfg, B, S, device="cuda"), tok, img)
+    runs = bf16_path_runs(torch, T, card, bf16_cache, tok, want, VLM_ARCH,
+                          lambda name, logits: finite(name, logits, Tb))
+
+    # (d) decode_step walls with and without the kernel, in turns, then a
+    # profile of the kernel's steps; the kernel at the two new shapes
+    walls, wall_ms, prof, steps = step_walls(torch, T, card, bf16_cache, tok, len(units),
+                                             VLM_ARCH)
+    H, K, hd, Ti = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_image_tokens
+    times = {"self": shape_times(torch, B, S, Tb, H, K, hd, timer, 0),
+             "cross_bf16": shape_times(torch, B, Ti, Ti, H, K, hd, timer, 0),
+             "cross_f32": shape_times(torch, B, Ti, Ti, H, K, hd, timer, 0, torch.float32)}
+    emit({"phase": "lm_vlm_encoder", "part": "vlm", "card": smi, "arch": VLM_ARCH,
+          "layers": cfg.num_layers, "cross_layers": T.n_cross(cfg),
+          "of_layers": full.num_layers, "params": n_params,
+          "param_count_section": cfg.param_count(), "param_count_full": full.param_count(),
+          "weights": f"f32, seed 0, every cross gate {VLM_GATE}",
+          "host_memory_gb": memory, "batch": B, "image_tokens": Ti,
+          "images": f"make_images(seed={VLM_IMAGE_SEED})",
+          "a_f32_positions": Tf, "a_image_kv_card_vs_cpu_max_abs": fill_gap,
+          "a_card_vs_cpu_max_abs": card_vs_cpu, "a_layer_steps": layer_steps,
+          "a_layer_calls_replayed": len(units) * len(layer_steps),
+          "a_layer_card_vs_cpu_max_abs": by_layer, "limit": LM_CARD_VS_CPU_TOL,
+          "c_decode_vs_prefill_max_abs": decode_vs_prefill,
+          "b_positions": Tb, "b_cache_len": S, "b_launches": runs["launches"],
+          "b_kernel_vs_plain_per_call_max_abs": runs["per_call"],
+          "b_logits_max_abs_kernel_vs_plain": runs["drift"], "b_top1_agreement": runs["top1"],
+          "d_decode_step_ms_median": wall_ms,
+          "d_decode_step_ms_min": {k: min(v) for k, v in walls.items()},
+          "d_decode_steps": len(walls["kernels"]), "d_profile": prof,
+          "d_flash_decode": times,
+          "build_s": build_s, "fill_card_s": fill_card_s, "fill_cpu_s": fill_cpu_s,
+          "cpu_run_s": cpu_s, "prefill_s": prefill_s, "path_s": runs["path_s"],
+          "vlm_s": time.perf_counter() - t_phase})
+    del card, steps
+    torch.cuda.empty_cache()
+
+    # the encoder, uncut: prefill of 8 x 1,000 frames timed and profiled,
+    # card vs CPU at 2 x 500; it launches no kernel
+    t_enc = time.perf_counter()
+    ecfg = get_config(ENC_ARCH)
+    t0 = time.perf_counter()
+    enc = serve_lm.build(ecfg, seed=0, torch_device="cuda")
+    torch.cuda.synchronize()
+    enc_build_s = time.perf_counter() - t0
+    frames = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (ENC_BATCH, ENC_FRAMES, ecfg.d_model), dtype=np.float32))
+    fr = frames.cuda()
+    ops.reset_launch_counts()
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = T.forward(enc, frames=fr)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    enc_launches = ops.launch_counts()
+    if any(enc_launches.values()):
+        raise AssertionError(f"{ENC_ARCH}: the encoder launched a kernel: {enc_launches}")
+    if tuple(logits.shape) != (ENC_BATCH, ENC_FRAMES, ecfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{ENC_ARCH}: logits {tuple(logits.shape)} not finite")
+    del logits
+    enc_prof = device_profile(torch, lambda: T.forward(enc, frames=fr), 1)
+    enc_prof["idle_share"] = (1.0 - enc_prof["device_busy_us"] / (min(prefill_ms[1:]) * 1e3)
+                              if enc_prof["device_ops"] else None)
+    host = T.LM(ecfg, device="cpu", params=T.tree_of(enc))
+    small = frames[:ENC_CPU_BATCH, :ENC_CPU_FRAMES]
+    t0 = time.perf_counter()
+    want_small = T.forward(host, frames=small)
+    enc_cpu_s = time.perf_counter() - t0
+    enc_gap = float((T.forward(enc, frames=small.cuda()).cpu() - want_small).abs().max())
+    if enc_gap > LM_CARD_VS_CPU_TOL:
+        raise AssertionError(f"{ENC_ARCH}: prefill card vs CPU {enc_gap} > "
+                             f"{LM_CARD_VS_CPU_TOL}")
+    n_enc = sum(p.numel() for p in enc.parameters())
+    del host, enc, fr, want_small
+    torch.cuda.empty_cache()
+
+    # training: one full-width step at 8 x 1,000 frames, every grad finite;
+    # the reduced configs' step-0 loss card vs CPU
+    torch.cuda.reset_peak_memory_stats()
+    state, step = lm_train.build(ecfg, device="cuda")
+    batch = lm_train.lm_batch(ecfg, ENC_BATCH, ENC_FRAMES, 0, "cuda")
+    loss, grads = value_and_grad(lambda p, b: T.loss_fn(p, b, ecfg), state["params"], batch)
+    bad = [i for i, g in enumerate(leaves(grads)) if not bool(torch.isfinite(g).all())]
+    n_leaves = len(leaves(grads))
+    del grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = step(state, batch)
+    train_loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if bad or not np.isfinite(float(loss)) or not np.isfinite(float(m["grad_norm"])):
+        raise AssertionError(f"{ENC_ARCH} train step: loss {float(loss)}, non-finite grads "
+                             f"at leaves {bad}")
+    del state, batch, m
+    torch.cuda.empty_cache()
+    step0 = {}
+    for arch, tol in ((ENC_ARCH, ENC_STEP0_TOL), (VLM_ARCH, TRAIN_CPU_TOL)):
+        rcfg = get_config(arch).reduced()
+        losses = []
+        for dev in ("cuda", "cpu"):
+            st, fn = lm_train.build(rcfg, device=dev)
+            _, mr = fn(st, lm_train.lm_batch(rcfg, 2, 32, 0, dev))
+            losses.append(float(mr["loss"]))
+        step0[arch] = losses
+        if not abs(losses[0] - losses[1]) <= tol:
+            raise AssertionError(f"{rcfg.name} step 0: card {losses[0]}, CPU {losses[1]}")
+    emit({"phase": "lm_vlm_encoder", "part": "encoder", "card": smi, "arch": ENC_ARCH,
+          "layers": ecfg.num_layers, "params": n_enc, "weights": "f32, seed 0",
+          "launches": enc_launches, "kernels": "none: encoder prefill and training "
+                                               "launch no kernel of the port",
+          "prefill_batch": ENC_BATCH, "prefill_frames": ENC_FRAMES,
+          "prefill_ms": prefill_ms, "prefill_profile": enc_prof,
+          "card_vs_cpu_shape": [ENC_CPU_BATCH, ENC_CPU_FRAMES],
+          "card_vs_cpu_max_abs": enc_gap, "limit": LM_CARD_VS_CPU_TOL, "cpu_s": enc_cpu_s,
+          "train": {"batch": ENC_BATCH, "frames": ENC_FRAMES, "loss": float(loss),
+                    "step_loss": train_loss, "grad_leaves": n_leaves,
+                    "all_grads_finite": not bad, "step_s": step_s,
+                    "peak_gib": peak_gib},
+          "step0_loss_card_cpu": step0,
+          "step0_tolerance": {ENC_ARCH: ENC_STEP0_TOL, VLM_ARCH: TRAIN_CPU_TOL},
+          "build_s": enc_build_s, "encoder_s": time.perf_counter() - t_enc,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"launches": runs["launches"], "max_abs_err": runs["per_call"], "times": times}
 
 
 def main() -> int:
@@ -2681,6 +3085,9 @@ def main() -> int:
     # lm_families: the MoE, SSM and hybrid LM families at full width
     fam = lm_families(torch, np, timer, smi)
 
+    # lm_vlm_encoder: the VLM (one section at full width) and the encoder
+    ve = lm_vlm_encoder(torch, np, timer, smi)
+
     emit({"phase": "done", "script_s": time.perf_counter() - t_script})
     emit({"kernels": [
         {"name": "gather_pool", "route": "cuda",
@@ -2724,13 +3131,12 @@ def main() -> int:
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:88",
-         **fd, "launches": fd["launches"] + sum(fam["launches"].values()),
-         "launches_by_path": {"lm_main_path": fd["launches"], "lm_families": fam["launches"]},
-         "max_abs_err": max(fd["max_abs_err"], fam["max_abs_err"]),
-         "lm_families": {arch: {k: t[k]["median"] if isinstance(t[k], dict) else t[k]
-                                for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms")}
-                         for arch, t in fam["times"].items()}},
+         **fd, "launches": fd["launches"] + sum(fam["launches"].values()) + ve["launches"],
+         "launches_by_path": {"lm_main_path": fd["launches"], "lm_families": fam["launches"],
+                              "lm_vlm_encoder": ve["launches"]},
+         "max_abs_err": max(fd["max_abs_err"], fam["max_abs_err"], ve["max_abs_err"]),
+         "lm_families": {arch: shape_summary(t) for arch, t in fam["times"].items()},
+         "lm_vlm_encoder": {shape: shape_summary(t) for shape, t in ve["times"].items()}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -2,7 +2,7 @@
 memory for embedding-dominated inference (scheduling, caches, IO, placement,
 power), with the HBM row cache of the device engine."""
 from repro_torch.core.cache import (CacheGeometry, TorchRowCache,  # noqa: F401
-                                    dual_cache_geometry)
+                                    dual_cache_geometry, make_key)
 from repro_torch.core.cache_sim import (BatchedRowCache,  # noqa: F401
                                         SetAssocSimCache, SimRowCache)
 from repro_torch.core.columnar import (ColumnarChunk, ColumnarQueries,  # noqa: F401

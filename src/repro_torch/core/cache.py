@@ -46,6 +46,13 @@ class CacheGeometry:
         return self.num_sets * self.ways
 
 
+def make_key(table_id, row_id) -> torch.Tensor:
+    """(table, row) int32 pair -- stacked last-dim-2 tensor."""
+    t = torch.as_tensor(table_id, dtype=torch.int32)
+    r = torch.as_tensor(row_id, dtype=torch.int32)
+    return torch.stack(torch.broadcast_tensors(t, r), dim=-1)
+
+
 def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
     """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32), without int64
     overflow: the constant is split into 16-bit halves."""

@@ -3,5 +3,6 @@ from repro_torch.data.synthetic import (  # noqa: F401
     dlrm_batch_stream,
     lm_batch_stream,
     make_dlrm_batch,
+    make_features,
     make_lm_batch,
 )

@@ -5,7 +5,8 @@ batch sequence (required for the bitwise checkpoint-resume test). Generation
 is host-side numpy; the trainer moves each batch to the device.
 
 A copy of ``repro.data.synthetic``: the same ``(seed, step)`` gives the same
-batch bit for bit (``tests/test_torch_trainer.py``).
+batch bit for bit (``tests/test_torch_trainer.py``). ``make_features`` (the
+encoder's frames, the VLM's images) is the port's own.
 """
 from __future__ import annotations
 
@@ -47,6 +48,18 @@ def make_lm_batch(vocab: int, batch: int, seq: int, *, seed: int, step: int,
     toks = zipf_indices(rng, vocab, zipf_alpha, batch * (seq + 1)).reshape(batch, seq + 1)
     return {"tokens": toks[:, :-1].astype(np.int32),
             "labels": toks[:, 1:].astype(np.int32)}
+
+
+def make_features(batch: int, length: int, dim: int, *, seed: int, step: int,
+                  kind: str) -> np.ndarray:
+    """[batch, length, dim] f32 standard normal for (seed, step): an
+    encoder's ``frames`` (``kind="frames"``) or a VLM's ``images``
+    (``kind="images"``), from streams of their own. The reference example
+    draws them with ``jax.random.normal(PRNGKey(step))``
+    (``examples/lm_train.py:41-47``), which numpy cannot reproduce."""
+    salt = {"frames": 1, "images": 2}[kind]
+    rng = np.random.default_rng(np.random.SeedSequence([seed, step, salt]))
+    return rng.standard_normal((batch, length, dim), dtype=np.float32)
 
 
 def lm_batch_stream(vocab: int, batch: int, seq: int, *, seed: int = 0,

@@ -1,9 +1,12 @@
-"""Train an LM of the dense, MoE, SSM or hybrid family (reduced config
-unless ``--full``) on synthetic tokens.
+"""Train an LM of any assigned arch (reduced config unless ``--full``) on
+synthetic tokens.
 
 The port of the reference's ``examples/lm_train.py``, with the same printed
-lines: AdamW 1e-3 over ``make_lm_batch`` batches (seed 0, step i). The VLM
-and encoder archs raise ``NotImplementedError`` (ROADMAP item 6).
+lines: AdamW 1e-3 over ``make_lm_batch`` batches (seed 0, step i). The
+encoder takes ``frames`` [B, S, d] in place of the tokens and the VLM
+``images`` [B, T_img, d] beside them, both drawn with numpy per (seed 0,
+step i) by ``make_features``, where the reference example draws them with
+``jax.random``.
 
 Run: PYTHONPATH=src python -m repro_torch.lm_train \
          [--arch smollm-135m --steps 30 --batch 8 --seq 64 --full --device cuda]
@@ -15,8 +18,8 @@ import argparse
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import ModelConfig, get_config, list_archs
-from repro_torch.data import make_lm_batch
+from repro_torch.configs import ASSIGNED_ARCHS, ModelConfig, get_config
+from repro_torch.data import make_features, make_lm_batch
 from repro_torch.models import transformer as T
 from repro_torch.optim import AdamW, TrainState, make_train_step
 from repro_torch.tree import tree_map
@@ -25,7 +28,6 @@ from repro_torch.tree import tree_map
 def build(cfg: ModelConfig, *, device="cuda"):
     """(state, step_fn): ``cfg``'s weights from a generator seeded with 0,
     on ``device``; AdamW at 1e-3."""
-    T.require_ported(cfg)
     dev = resolve_device(device)
     params = tree_map(lambda t: t.to(dev),
                       T.init_params(cfg, torch.Generator().manual_seed(0)))
@@ -35,13 +37,23 @@ def build(cfg: ModelConfig, *, device="cuda"):
 
 
 def lm_batch(cfg: ModelConfig, batch: int, seq: int, step: int, device) -> dict:
+    """Step ``step``'s batch (seed 0): tokens and labels [batch, seq]; the
+    encoder's frames [batch, seq, d] in place of the tokens; the VLM's
+    images [batch, T_img, d] beside them."""
     raw = make_lm_batch(cfg.vocab_size, batch, seq, seed=0, step=step)
+    if cfg.family == "encoder":
+        raw["frames"] = make_features(batch, seq, cfg.d_model, seed=0, step=step,
+                                      kind="frames")
+        del raw["tokens"]
+    if cfg.family == "vlm":
+        raw["images"] = make_features(batch, cfg.num_image_tokens, cfg.d_model, seed=0,
+                                      step=step, kind="images")
     return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m", choices=list(list_archs()))
+    ap.add_argument("--arch", default="smollm-135m", choices=list(ASSIGNED_ARCHS))
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

@@ -8,8 +8,9 @@ hooks (``logical_constraint``, ``cotangent_constraint``) are identities
 without a mesh and have no counterpart here.
 
 A decode call (one query position against a cache, causal, no sliding
-window) goes through the ``flash_decode`` kernel (``kernels.ops``); every
-other attention goes through :func:`attention_core`.
+window; or a VLM cross layer's one query position against its cached
+image keys) goes through the ``flash_decode`` kernel (``kernels.ops``);
+every other attention goes through :func:`attention_core`.
 """
 from __future__ import annotations
 
@@ -24,11 +25,13 @@ from repro_torch.kernels.ref import NEG_INF
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In f32 for f32 and bf16 input, as the reference; in f64 for f64."""
     dtype = x.dtype
-    x = x.to(torch.float32)
+    acc = torch.promote_types(dtype, torch.float32)
+    x = x.to(acc)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * weight.to(torch.float32)).to(dtype)
+    return (x * weight.to(acc)).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +184,24 @@ def self_attention(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                               causal=cfg.causal, sliding_window=cfg.sliding_window,
                               kv_valid=kv_cache["valid"].to(torch.bool))
     return attention_out(params, attn), kv_cache
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    decode: bool = False, use_kernel: bool = True) -> torch.Tensor:
+    """Non-causal attention of q [B, Sq, H, hd] onto image keys and values
+    k/v [B, T, K, hd]: no positions and no mask, every key seen by every
+    query. A decode call (one query position against the cached image K/V)
+    goes through the ``flash_decode`` kernel with ``kv_len = T`` for every
+    row, the kernel's prefix mask then masking nothing; other calls take
+    :func:`attention_core`. Returns [B, Sq, H, hd] in q's dtype."""
+    B, Sq = q.shape[:2]
+    if decode and Sq == 1:
+        kv_len = torch.full((B,), k.shape[1], dtype=torch.int32, device=q.device)
+        attn = ops.decode_attention(q[:, 0].contiguous(), k, v, kv_len, use_kernel=use_kernel)
+        return attn[:, None].to(q.dtype)
+    qpos = torch.zeros((B, Sq), dtype=torch.int32, device=q.device)
+    kpos = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=q.device)
+    return attention_core(q, k, v, qpos, kpos, causal=False)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, n: int = 1, *, dtype=torch.bfloat16,

@@ -76,7 +76,7 @@ def ssd_forward(params: Mapping[str, torch.Tensor], u: torch.Tensor, cfg,
         out, state = ssd_forward(params, F.pad(u, (0, 0, 0, Q - S % Q)), cfg, initial_state)
         return out[:, :S], state
     nc = S // Q
-    f32 = torch.float32
+    acc = torch.promote_types(u.dtype, torch.float32)   # f32, or f64 for f64 input
 
     z = torch.einsum("bsd,dk->bsk", u, params["z_proj"])
     x = _causal_conv(torch.einsum("bsd,dk->bsk", u, params["x_proj"]),
@@ -87,13 +87,13 @@ def ssd_forward(params: Mapping[str, torch.Tensor], u: torch.Tensor, cfg,
                       params["conv_c"], params["conv_c_b"])
     dt = torch.einsum("bsd,dh->bsh", u, params["dt_proj"])
 
-    dt = F.softplus(dt.to(f32) + params["dt_bias"].to(f32))
-    A = -torch.exp(params["A_log"].to(f32))                   # [H]
+    dt = F.softplus(dt.to(acc) + params["dt_bias"].to(acc))
+    A = -torch.exp(params["A_log"].to(acc))                   # [H]
     dA = dt * A                                               # [B, S, H]
 
-    xc = x.reshape(B, nc, Q, H, hd).to(f32)
-    Bc = Bm.reshape(B, nc, Q, N).to(f32)
-    Cc = Cm.reshape(B, nc, Q, N).to(f32)
+    xc = x.reshape(B, nc, Q, H, hd).to(acc)
+    Bc = Bm.reshape(B, nc, Q, N).to(acc)
+    Cc = Cm.reshape(B, nc, Q, N).to(acc)
     dtc = dt.reshape(B, nc, Q, H)
     dAc = dA.reshape(B, nc, Q, H)
     dA_cs = torch.cumsum(dAc, dim=2)                          # [B, nc, Q, H]
@@ -114,8 +114,8 @@ def ssd_forward(params: Mapping[str, torch.Tensor], u: torch.Tensor, cfg,
 
     # inter-chunk recurrence, emitting the state before each chunk
     chunk_decay = torch.exp(torch.sum(dAc, dim=2))            # [B, nc, H]
-    h = (torch.zeros((B, H, hd, N), dtype=f32, device=u.device) if initial_state is None
-         else initial_state.to(f32))
+    h = (torch.zeros((B, H, hd, N), dtype=acc, device=u.device) if initial_state is None
+         else initial_state.to(acc))
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
@@ -126,7 +126,7 @@ def ssd_forward(params: Mapping[str, torch.Tensor], u: torch.Tensor, cfg,
     y_inter = torch.einsum("bcqn,bchpn->bcqhp", Cc, h_prev) * in_decay[..., None]
 
     y = (y_intra + y_inter).reshape(B, S, H, hd)
-    y = y + xc.reshape(B, S, H, hd) * params["D"].to(f32)[None, None, :, None]
+    y = y + xc.reshape(B, S, H, hd) * params["D"].to(acc)[None, None, :, None]
     y = y.reshape(B, S, di).to(u.dtype) * F.silu(z)
     out = torch.einsum("bsk,kd->bsd", y, params["out_proj"])
     return out, h.to(u.dtype)
@@ -159,7 +159,7 @@ def ssd_decode_step(params: Mapping[str, torch.Tensor], u: torch.Tensor,
     between steps, as the reference stores it."""
     B = u.shape[0]
     di, H, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
-    f32 = torch.float32
+    acc = torch.promote_types(u.dtype, torch.float32)   # f32, or f64 for f64 input
 
     z = torch.einsum("bsd,dk->bsk", u, params["z_proj"])
     x_raw = torch.einsum("bsd,dk->bsk", u, params["x_proj"])[:, 0]
@@ -172,15 +172,15 @@ def ssd_decode_step(params: Mapping[str, torch.Tensor], u: torch.Tensor,
     Cm = _conv_step(cache["conv_c"], c_raw, params["conv_c"], params["conv_c_b"])
     x = x.reshape(B, H, hd)
 
-    dt = F.softplus(dt.to(f32) + params["dt_bias"].to(f32))  # [B, H]
-    A = -torch.exp(params["A_log"].to(f32))
+    dt = F.softplus(dt.to(acc) + params["dt_bias"].to(acc))  # [B, H]
+    A = -torch.exp(params["A_log"].to(acc))
     decay = torch.exp(dt * A)
 
-    h = cache["state"].to(f32)
-    dx = dt[..., None] * x.to(f32)                           # [B, H, hd]
-    h_new = h * decay[..., None, None] + torch.einsum("bhp,bn->bhpn", dx, Bm.to(f32))
-    y = torch.einsum("bhpn,bn->bhp", h_new, Cm.to(f32))
-    y = y + x.to(f32) * params["D"].to(f32)[None, :, None]
+    h = cache["state"].to(acc)
+    dx = dt[..., None] * x.to(acc)                           # [B, H, hd]
+    h_new = h * decay[..., None, None] + torch.einsum("bhp,bn->bhpn", dx, Bm.to(acc))
+    y = torch.einsum("bhpn,bn->bhp", h_new, Cm.to(acc))
+    y = y + x.to(acc) * params["D"].to(acc)[None, :, None]
     y = y.reshape(B, 1, di).to(u.dtype) * F.silu(z)
     cache["state"].copy_(h_new)
     return torch.einsum("bsk,kd->bsd", y, params["out_proj"])

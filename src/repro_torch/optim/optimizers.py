@@ -153,12 +153,14 @@ def TrainState(params, optimizer) -> dict:
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
-    """(loss, grads) of ``loss_fn(params, batch)``: autograd over the leaves."""
+    """(loss, grads) of ``loss_fn(params, batch)``: autograd over the leaves.
+    A leaf the loss does not use (the encoder's embedding table) gets a zero
+    grad, as ``jax.grad`` gives it."""
     _, xs = flatten(params)
     xs = [x.detach().requires_grad_(True) for x in xs]
     with torch.enable_grad():
         loss = loss_fn(unflatten(params, xs), batch)
-        grads = torch.autograd.grad(loss, xs)
+        grads = torch.autograd.grad(loss, xs, materialize_grads=True)
     return loss.detach(), unflatten(params, list(grads))
 
 

@@ -208,6 +208,8 @@ def _decode_inputs(cuda, B, H, K, hd, S, qdt, kvdt, seed):
     (8, 9, 3, 64, 1024), (4, 6, 2, 16, 77),            # G = 3; ragged S
     (5, 32, 8, 64, 300),                               # granite-3-2b: G 4
     (4, 48, 1, 128, 1000),                             # granite-34b: G 48
+    (8, 64, 8, 128, 512),                              # llama-3.2-vision self: G 8
+    (8, 64, 8, 128, 1601),                             # its cross layers: 1,601 keys
     (3, 20, 2, 40, 129), (4, 9, 1, 24, 200),           # lanes padded to 8, 4
     (180, 9, 3, 64, 150),                              # B*K fills the card: 1 split
 ])
@@ -439,8 +441,41 @@ def test_lm_family_decode_on_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
 
 
+def test_vlm_decode_on_card_matches_cpu(cuda):
+    """The reduced VLM from one seed with its gates opened to 0.5, the
+    image keys and values filled on each device, f32 caches: logits within
+    1e-4; ``flash_decode`` once a self layer and once a cross layer a step."""
+    from repro_torch.models.transformer import n_cross
+    cfg = get_config("llama-3.2-vision-90b").reduced()
+    tokens = torch.from_numpy(serve_lm.make_tokens(cfg, batch=3, tokens=20, seed=5))
+    images = torch.from_numpy(serve_lm.make_images(cfg, batch=3, seed=2))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = serve_lm.build(cfg, seed=1, torch_device=dev)
+        with torch.no_grad():
+            for blk in model.cross:
+                blk.gate.fill_(0.5)
+        cache = init_cache(cfg, 3, 37, dtype=torch.float32, device=dev)
+        serve_lm.fill_images(model, cache, tokens.to(dev), images.to(dev))
+        ops.reset_launch_counts()
+        outs.append(serve_lm.decode(model, cache, tokens.to(dev)).cpu())
+        want = (cfg.num_layers + n_cross(cfg)) * 20 if dev.type == "cuda" else 0
+        assert ops.launch_counts()["flash_decode"] == want
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-4)
+
+
+def test_encoder_prefill_on_card_matches_cpu(cuda):
+    from repro_torch.models.transformer import forward
+    cfg = get_config("hubert-xlarge").reduced()
+    frames = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 50, cfg.d_model)).astype(np.float32))
+    got, want = (forward(serve_lm.build(cfg, seed=1, torch_device=dev), frames=frames.to(dev))
+                 for dev in (cuda, "cpu"))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b", "mamba2-1.3b",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "hubert-xlarge", "llama-3.2-vision-90b"])
 def test_lm_family_train_step_on_card_matches_cpu(cuda, arch):
     from repro_torch import lm_train
     cfg = get_config(arch).reduced()

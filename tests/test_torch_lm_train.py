@@ -190,14 +190,3 @@ def test_lm_train_entry_point_on_cpu(capsys):
                       f"({cfg.param_count()/1e6:.1f}M params)")
     assert [ln.split(" loss ")[0] for ln in out[1:]] == ["  step    0", "  step    2"]
     assert all(np.isfinite(float(ln.split(" loss ")[1])) for ln in out[1:])
-
-
-@pytest.mark.parametrize("family", ["vlm", "encoder"])
-def test_other_families_raise_naming_item_6(family):
-    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), family=family)
-    params = TT.init_params(get_config("smollm-135m").reduced(), torch.Generator())
-    batch = _batch(make_lm_batch(256, 1, 4, seed=0, step=0))
-    for call in (lambda: TT.loss_fn(params, batch, cfg),
-                 lambda: lm_train.build(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()

@@ -168,3 +168,21 @@ def test_entry_points_on_cpu(capsys):
     assert out[3] == "  flash_decode launches: 0"
     assert [ln.split(" loss ")[0] for ln in out[5:]] == ["  step    0", "  step    2"]
     assert all(np.isfinite(float(ln.split(" loss ")[1])) for ln in out[5:])
+
+
+def test_float64_copy_is_a_yardstick(case):
+    """A float64 copy of the model (``.double()``) runs every step of the
+    SSM path in float64 (``rms_norm`` and the SSD casts follow the input
+    dtype): its decode equals its prefill to float64 rounding, and the f32
+    model's decode and prefill each lie within f32 rounding of it."""
+    toks = torch.from_numpy(C.tokens(case["cfg"], B, T))
+    f64 = TT.LM(case["cfg"], device="cpu", params=TT.tree_of(case["model"])).double()
+    dec64 = serve_lm.decode(f64, TT.init_cache(case["cfg"], B, T, torch.float64, "cpu"), toks)
+    pre64 = TT.forward(f64, toks)
+    assert dec64.dtype == pre64.dtype == torch.float64
+    assert float((dec64 - pre64).abs().max()) < 1e-12
+    dec32 = serve_lm.decode(case["model"], TT.init_cache(case["cfg"], B, T, torch.float32,
+                                                         "cpu"), toks)
+    for got in (dec32, TT.forward(case["model"], toks)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.double().numpy(), dec64.numpy(), **C.LOGIT_TOL)

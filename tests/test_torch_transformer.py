@@ -4,8 +4,9 @@ vs ``repro.models.transformer``) and the LM serving slice
 qwen1.5-0.5b (QKV bias) and granite-34b (MQA, GELU), with the reference's
 weights loaded through ``params_from_jax`` and an f32 cache, as
 ``tests/test_arch_smoke.py`` decodes; and the config copies of every arch
-with a decode step. The MoE, SSM and hybrid families have their own files
-(``test_torch_moe.py``, ``test_torch_ssd.py``, ``test_torch_hybrid.py``)."""
+with a decode step. The MoE, SSM, hybrid, VLM and encoder families have
+their own files (``test_torch_moe.py``, ``test_torch_ssd.py``,
+``test_torch_hybrid.py``, ``test_torch_vlm.py``, ``test_torch_encoder.py``)."""
 import dataclasses
 
 import jax
@@ -181,14 +182,10 @@ def test_out_of_order_position_raises():
     assert cache.length == 1
 
 
-@pytest.mark.parametrize("family", ["vlm", "encoder"])
-def test_other_families_are_not_ported_yet(family):
-    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), family=family)
-    for call in (lambda: TT.LM(cfg, device="cpu"),
-                 lambda: TT.init_params(cfg, torch.Generator()),
-                 lambda: TT.init_cache(cfg, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+def test_forward_rejects_an_unknown_mode():
     model = TT.LM(get_config("smollm-135m").reduced(), device="cpu")
-    with pytest.raises(ValueError, match="mode"):          # training is ported now
+    with pytest.raises(ValueError, match="mode"):
         TT.forward(model, torch.zeros((1, 2), dtype=torch.int32), mode="decode")
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), family="retnet")
+    with pytest.raises(ValueError, match="unknown family"):
+        TT.LM(cfg, device="cpu")
