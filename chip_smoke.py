@@ -167,8 +167,10 @@ train_path -- the training slice (``repro_torch.train_dlrm``,
               bounds (bytes, f32 operations) at the path's shape, one
               ``decode_32k`` layer (also by split count) and one granite-34b
               layer (B 8, S = kv_len 8,192, H 48 over K 1, hd 128), and the
-              median ``decode_step`` wall per token with the kernel and with
-              the plain version, with the profiler's device time; the
+              median ``decode_step`` wall per token with the kernel (through
+              its ``torch.library`` operator, and called straight from
+              Python as before the registration) and with the plain
+              version, in turns, with the profiler's device time; the
               profile must show one ``flash_decode`` kernel per layer and no
               combine kernel.
 
@@ -231,6 +233,29 @@ lm_vlm_encoder -- the VLM and encoder families at full width, f32 weights
               at 2 x 500 within 1e-4; one full-width train step at 8 x
               1,000, every grad finite; the reduced configs' step-0 loss
               card vs CPU (the encoder's within 1e-6).
+
+launch -- the launch tooling (``repro_torch.launch``). (a) The dry-run
+              sweep, ``python -m repro_torch.launch.dryrun --mesh both`` in a
+              subprocess with a timeout, on fake CUDA tensors over a fake
+              process group: every (arch, shape) cell of the 16x16 and
+              2x16x16 meshes ``ok`` or ``skipped`` with the reference's
+              reason, each cell's fit, bottleneck and trace seconds, and
+              the sweep's seconds (a cell that does not fit 80 GB is
+              reported, not failed). (b) The tool against the card, while
+              the sweep runs: ``smollm-135m`` train at 8 x 4,096 and its
+              decode step (8 sequences into a 1,024-position cache, 1,023
+              written) on ``make_host_mesh()`` (one rank, NCCL), each built
+              by ``steps.build_step`` once on fake tensors (the sweep's
+              method: two cut depths extrapolated) and once for real (seeded
+              weights, bf16): FLOPs equal, the predicted peak within 10% of
+              the measured one (``torch.cuda.max_memory_allocated`` above
+              what was allocated just before the step, plus the step's
+              arguments), the roofline time beside the measured wall; the
+              decode step launches ``flash_decode`` 30 times (counters
+              zeroed just before, read just after), its logits bit-equal to
+              the plain-tensor decode step on the same weights and cache,
+              and the kernel's ``lse`` within 1e-5 of the plain version's
+              at the path's shape.
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -334,6 +359,11 @@ VLM_TOKENS, VLM_MAX_LEN = 128, 512               # (b) the bf16 serving cache
 ENC_ARCH, ENC_BATCH, ENC_FRAMES = "hubert-xlarge", 8, 1_000   # 20 s of audio at 50 Hz
 ENC_CPU_BATCH, ENC_CPU_FRAMES = 2, 500           # card vs CPU prefill
 ENC_STEP0_TOL = 1e-6                             # the reduced config's step-0 loss
+# launch: the fake-mesh dry-run of every (arch, shape, mesh) cell in a
+# subprocess, and the tool against the card on two one-card smollm-135m cells
+LAUNCH_ARCH, LAUNCH_BATCH, LAUNCH_CACHE = "smollm-135m", 8, 1024   # (b) train 8 x 4,096
+LAUNCH_MEM_TOL, LAUNCH_LSE_TOL = 0.10, 1e-5      # predicted vs measured peak; lse
+LAUNCH_SWEEP_TIMEOUT, LAUNCH_TIMED = 300, 3      # (a) seconds; (b) timed steps
 
 
 def emit(obj) -> None:
@@ -2155,19 +2185,30 @@ def lm_phases(torch, np, timer, smi) -> dict:
                             g34.head_dim, timer, 10)
     torch.cuda.empty_cache()
 
-    caches = {"kernels": init_cache(cfg, B, S, device="cuda"),
-              "plain": init_cache(cfg, B, S, device="cuda")}
-    walls = {"kernels": [], "plain": []}
-    for t in range(T):                         # in turns, same tokens
-        for name, cache in caches.items():
-            model.use_kernels = name == "kernels"
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            decode_step(model, cache, tok_gpu[:, t:t + 1], t)
-            torch.cuda.synchronize()
-            if t >= 8:                         # first steps warm up
-                walls[name].append((time.perf_counter() - t0) * 1e3)
+    # "kernels_direct": the wrapper called straight from Python, as before the
+    # kernels were operators of the dispatcher (torch.library)
+    registered = ops.decode_attention
+
+    def direct(q, k, v, kv_len, *, use_kernel=True, return_lse=False):
+        return fd_module.flash_decode(q, k, v, kv_len, return_lse=return_lse)
+    caches = {name: init_cache(cfg, B, S, device="cuda")
+              for name in ("kernels", "kernels_direct", "plain")}
+    walls = {name: [] for name in caches}
+    try:
+        for t in range(T):                     # in turns, same tokens
+            for name, cache in caches.items():
+                model.use_kernels = name != "plain"
+                ops.decode_attention = direct if name == "kernels_direct" else registered
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                decode_step(model, cache, tok_gpu[:, t:t + 1], t)
+                torch.cuda.synchronize()
+                if t >= 8:                     # first steps warm up
+                    walls[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        ops.decode_attention = registered
     wall_ms = {k: statistics.median(v) for k, v in walls.items()}
+    del caches["kernels_direct"]
     prof = {}
     for name, cache in caches.items():         # positions T .. T + 7
         model.use_kernels = name == "kernels"
@@ -2304,13 +2345,16 @@ def record_units(torch, T, n_units: int, steps):
         records.append(("ssm", blk, x.clone(), before, out.clone(), clone(ssd_cache), None))
         return out
 
-    def attn(blk, x, positions, cfg, kv_cache=None, cache_index=None, use_kernel=True):
+    def attn(blk, x, positions, cfg, kv_cache=None, cache_index=None, use_kernel=True,
+             static_moe=False):
         if kv_cache is None or not keep():
             return attn_block(blk, x, positions, cfg, kv_cache=kv_cache,
-                              cache_index=cache_index, use_kernel=use_kernel)
+                              cache_index=cache_index, use_kernel=use_kernel,
+                              static_moe=static_moe)
         before = clone(kv_cache)
         out = attn_block(blk, x, positions, cfg, kv_cache=kv_cache,
-                         cache_index=cache_index, use_kernel=use_kernel)
+                         cache_index=cache_index, use_kernel=use_kernel,
+                         static_moe=static_moe)
         records.append(("attn", blk, x.clone(), before, out[0].clone(), clone(kv_cache),
                         (positions.clone(), cache_index)))
         return out
@@ -2885,6 +2929,188 @@ def lm_vlm_encoder(torch, np, timer, smi) -> dict:
     return {"launches": runs["launches"], "max_abs_err": runs["per_call"], "times": times}
 
 
+def launch_values(torch, np, cfg, shape):
+    """Whole real tensors for ``steps.build_step(values=...)``: the params
+    pytree from ``init_params`` (seed 0) in bf16, a zero optimizer state,
+    seeded tokens and labels; a decode cell's cache holds seeded keys and
+    values at positions 0..S-2 (1,023 of 1,024 written)."""
+    from repro_torch.launch.steps import ACT_DTYPE
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    rng = np.random.default_rng(22)
+    B, S = shape.global_batch, shape.seq_len
+
+    def ints(*dims):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, dims).astype(np.int32)).cuda()
+
+    def values(args):
+        params = tree_map(lambda t: t.to(ACT_DTYPE).cuda(),
+                          T.init_params(cfg, torch.Generator().manual_seed(0)))
+        if shape.kind == "train":
+            state, _ = args
+            zeros = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device="cuda"),
+                             state["opt"])
+            return ({"params": params, "opt": zeros,
+                     "step": torch.zeros((), dtype=torch.int32, device="cuda")},
+                    {"tokens": ints(B, S), "labels": ints(B, S)})
+        _, cache, _ = args
+        kv = cache["kv"]
+        g = torch.Generator(device="cuda").manual_seed(23)
+        filled = {name: torch.randn(kv[name].shape, generator=g, device="cuda").to(kv[name].dtype)
+                  for name in ("k", "v")}
+        filled["pos"] = torch.arange(S, dtype=torch.int32, device="cuda").expand(
+            kv["pos"].shape).contiguous()
+        filled["valid"] = (filled["pos"] < S - 1).to(torch.int8)
+        return (params, {"kv": filled},
+                {"tokens": ints(B, 1), "pos": torch.tensor(S - 1, dtype=torch.int32).cuda()})
+    return values
+
+
+def launch_cell(torch, np, kind: str, mesh) -> dict:
+    """(b) of phase ``launch`` for one cell: the dry-run's prediction on
+    fake tensors against the same step run for real on the card."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = get_config(LAUNCH_ARCH)
+    override = ({"global_batch": LAUNCH_BATCH} if kind == "train" else
+                {"global_batch": LAUNCH_BATCH, "seq_len": LAUNCH_CACHE})
+    shape = dataclasses.replace(SHAPES["train_4k" if kind == "train" else "decode_32k"],
+                                **override)
+    pred = dryrun.run_cell(LAUNCH_ARCH, shape.name, False, shape_override=override,
+                           mesh=mesh, device="cuda")
+    if pred["status"] != "ok":
+        raise AssertionError(f"launch (b) {kind}: the fake cell {pred['status']}: "
+                             f"{pred.get('traceback')}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    step, args, _, out_pl, plan = steps.build_step(
+        cfg, shape, mesh, values=launch_values(torch, np, cfg, shape))
+    plain = None
+    if kind == "decode":                   # the same weights and cache, plain
+        params, cache, data = args
+        plain = (tree_map(lambda t: t.to_local(), params),
+                 T.cache_from_tree(cfg, tree_map(lambda t: t.to_local().clone(), cache),
+                                   shape.seq_len - 1),
+                 data["tokens"].to_local())
+    layers.set_logical_rules(plan.rules())
+    try:
+        # the peak above what is held now (the arguments, the plain copy and
+        # what earlier phases left), plus the arguments: the predicted terms
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        real = dryrun.trace_step(step, args, out_pl)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["flash_decode"]
+        measured = torch.cuda.max_memory_allocated() - held + real.arg_bytes
+        walls = []
+        for _ in range(LAUNCH_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        layers.set_logical_rules(None)
+    predicted = pred["memory"]["peak_per_device"]
+    gap = (predicted - measured) / measured
+    roof = pred["roofline"]
+    res = {"cell": f"{LAUNCH_ARCH} {kind} {shape.global_batch} x {shape.seq_len}",
+           "flops_fake": pred["hlo_flops_per_device"], "flops_real": real.flops,
+           "peak_predicted": predicted, "peak_measured": measured, "peak_gap": gap,
+           "memory_predicted": pred["memory"], "depths_traced": pred["depths_traced"],
+           "fake_cell_s": pred["cell_s"], "real_traced_s": real.trace_s,
+           "roofline_s": max(roof["compute_s"], roof["memory_s"], roof["collective_s"]),
+           "roofline": roof, "wall_s": statistics.median(walls), "walls_s": walls,
+           "launches": launches}
+    if pred["hlo_flops_per_device"] != real.flops:
+        raise AssertionError(f"launch (b) {kind}: fake FLOPs {pred['hlo_flops_per_device']} "
+                             f"!= real {real.flops}")
+    if abs(gap) > LAUNCH_MEM_TOL:
+        raise AssertionError(f"launch (b) {kind}: predicted peak {predicted} vs measured "
+                             f"{measured} ({gap:+.3f})")
+    if kind == "decode":
+        if launches != cfg.num_layers:
+            raise AssertionError(f"launch (b): the decode step launched flash_decode "
+                                 f"{launches} times, not {cfg.num_layers}")
+        logits = real.outputs[0].to_local()
+        want, _ = T.decode_step(T._TreeView(plain[0], cfg), plain[1], plain[2],
+                                shape.seq_len - 1)
+        if not torch.equal(logits, want):
+            raise AssertionError("launch (b): DTensor decode logits differ from the plain "
+                                 f"step's by {float((logits - want).abs().max())}")
+        k, v = plain[1].k[0], plain[1].v[0]
+        q = torch.randn((LAUNCH_BATCH, cfg.num_heads, cfg.head_dim), device="cuda")
+        lens = torch.full((LAUNCH_BATCH,), shape.seq_len, dtype=torch.int32, device="cuda")
+        out, lse = ops.decode_attention(q, k, v, lens, return_lse=True)
+        out_ref, lse_ref = ref.flash_decode_ref(q, k, v, lens, return_lse=True)
+        res["lse_max_abs_err"] = float((lse - lse_ref).abs().max())
+        res["out_max_abs_err"] = float((out - out_ref).abs().max())
+        if res["lse_max_abs_err"] > LAUNCH_LSE_TOL:
+            raise AssertionError(f"launch (b): kernel lse {res['lse_max_abs_err']} from plain")
+        res["logits_bit_equal"] = True
+    return res
+
+
+def launch_phase(torch, np, smi) -> dict:
+    """Phase ``launch``: (a) the dry-run sweep in a subprocess, (b) the
+    tool against the card on two one-card cells, while the sweep runs."""
+    import glob
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    with open(os.path.join(ROOT, "build", "dryrun.log"), "w") as log:
+        sweep = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "both",
+             "--workers", str(workers), "--out", out_dir],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            mesh = make_host_mesh()
+            try:
+                cells_b = [launch_cell(torch, np, kind, mesh) for kind in ("train", "decode")]
+            finally:
+                dist.destroy_process_group()
+            rc = sweep.wait(timeout=max(1.0, LAUNCH_SWEEP_TIMEOUT -
+                                        (time.perf_counter() - t_phase)))
+        finally:
+            if sweep.poll() is None:
+                sweep.kill()
+                sweep.wait()
+    sweep_s = time.perf_counter() - t_phase
+    cells = [json.load(open(f)) for f in sorted(glob.glob(os.path.join(out_dir, "*.json")))]
+    status = {c["status"] for c in cells}
+    if rc != 0 or len(cells) != 80 or not status <= {"ok", "skipped"}:
+        bad = [(c["arch"], c["shape"], c["mesh"], c.get("error")) for c in cells
+               if c["status"] not in ("ok", "skipped")]
+        raise AssertionError(f"launch (a): sweep rc {rc}, {len(cells)} cells, failed: {bad}")
+    rows = [[c["arch"], c["shape"], c["mesh"], c["status"],
+             c["memory"]["fits"] if c["status"] == "ok" else c["reason"],
+             c["roofline"]["bottleneck"] if c["status"] == "ok" else None,
+             c.get("trace_s"), c["memory"]["peak_per_device"] if c["status"] == "ok" else None]
+            for c in cells]
+    emit({"phase": "launch", "part": "a_sweep", "card": smi, "workers": workers,
+          "sweep_s": sweep_s, "ok": sum(c["status"] == "ok" for c in cells),
+          "skipped": sum(c["status"] == "skipped" for c in cells),
+          "not_fitting": [r[:3] for r in rows if r[3] == "ok" and not r[4]],
+          "cells": rows})
+    emit({"phase": "launch", "part": "b_tool_vs_card", "card": smi, "cells": cells_b,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"launches": cells_b[1]["launches"], "lse_max_abs_err": cells_b[1]["lse_max_abs_err"],
+            "out_max_abs_err": cells_b[1]["out_max_abs_err"]}
+
+
 def main() -> int:
     if sys.argv[1:] not in ([], ["--kernels"]):
         print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
@@ -3088,6 +3314,9 @@ def main() -> int:
     # lm_vlm_encoder: the VLM (one section at full width) and the encoder
     ve = lm_vlm_encoder(torch, np, timer, smi)
 
+    # launch: the fake-mesh dry-run sweep and the tool against the card
+    la = launch_phase(torch, np, smi)
+
     emit({"phase": "done", "script_s": time.perf_counter() - t_script})
     emit({"kernels": [
         {"name": "gather_pool", "route": "cuda",
@@ -3131,10 +3360,13 @@ def main() -> int:
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_decode.py:88",
-         **fd, "launches": fd["launches"] + sum(fam["launches"].values()) + ve["launches"],
+         **fd, "launches": fd["launches"] + sum(fam["launches"].values()) + ve["launches"]
+         + la["launches"],
          "launches_by_path": {"lm_main_path": fd["launches"], "lm_families": fam["launches"],
-                              "lm_vlm_encoder": ve["launches"]},
-         "max_abs_err": max(fd["max_abs_err"], fam["max_abs_err"], ve["max_abs_err"]),
+                              "lm_vlm_encoder": ve["launches"], "launch": la["launches"]},
+         "max_abs_err": max(fd["max_abs_err"], fam["max_abs_err"], ve["max_abs_err"],
+                            la["out_max_abs_err"]),
+         "lse_max_abs_err": la["lse_max_abs_err"],
          "lm_families": {arch: shape_summary(t) for arch, t in fam["times"].items()},
          "lm_vlm_encoder": {shape: shape_summary(t) for shape, t in ve["times"].items()}},
     ]})

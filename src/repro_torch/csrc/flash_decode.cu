@@ -63,6 +63,11 @@
 // m starts at -1e30, so a group, warp or split that saw no position holds
 // l = 0, acc = 0 and adds nothing to a merge, even when every m is -1e30.
 // Arithmetic is f32 with expf (no fast math).
+//
+// Optional log-sum-exp. Given lse (non-null), each (row, head) also gets
+// m + logf(l) of its scaled scores, from the final running max and sum of
+// the write-out (direct or merged): no extra pass. It lets a caller merge
+// attention over disjoint key ranges held on different cards.
 
 #include <atomic>
 #include <cmath>
@@ -152,7 +157,8 @@ template <typename TQ, typename TKV, int GT>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v, const int32_t* __restrict__ kv_len,
-                    float* __restrict__ out, float* __restrict__ part,
+                    float* __restrict__ out, float* __restrict__ lse,
+                    float* __restrict__ part,
                     int32_t* __restrict__ counters, int S, int H, int K,
                     int hd, int n_split, float scale) {
   constexpr int E = lane_elems(GT);     // elements of a key per lane
@@ -383,6 +389,7 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     }
     if (n_busy == 1) {
       out[(b * H + h0 + g) * hd + d] = a_sum / l_sum;
+      if (lse != nullptr && d == 0) lse[b * H + h0 + g] = m_max + logf(l_sum);
     } else {
       const int64_t r = (row * n_split + split) * GT + g;
       if (d == 0) {
@@ -414,13 +421,14 @@ flash_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
       a_sum += __ldcg(pacc + r * hd + d) * e;
     }
     out[(b * H + h0 + g) * hd + d] = a_sum / l_sum;
+    if (lse != nullptr && d == 0) lse[b * H + h0 + g] = m_max + logf(l_sum);
   }
   if (tid == 0) counters[row] = 0;
 }
 
 template <typename TQ, typename TKV, int GT>
 int launch(const void* q, const void* k, const void* v, const void* kv_len,
-           void* out, void* part, void* counters, int64_t B, int64_t S,
+           void* out, void* lse, void* part, void* counters, int64_t B, int64_t S,
            int64_t H, int64_t K, int64_t hd, int64_t n_split, float scale,
            cudaStream_t stream) {
   auto kernel = flash_decode_kernel<TQ, TKV, GT>;
@@ -444,7 +452,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
            kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int32_t*>(kv_len),
-      static_cast<float*>(out), static_cast<float*>(part),
+      static_cast<float*>(out), static_cast<float*>(lse), static_cast<float*>(part),
       static_cast<int32_t*>(counters), static_cast<int>(S), static_cast<int>(H),
       static_cast<int>(K), static_cast<int>(hd), static_cast<int>(n_split), scale);
   return static_cast<int>(cudaGetLastError());
@@ -452,14 +460,14 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
 
 template <typename TQ, typename TKV>
 int dispatch(const void* q, const void* k, const void* v, const void* kv_len,
-             void* out, void* part, void* counters, int64_t B, int64_t S,
+             void* out, void* lse, void* part, void* counters, int64_t B, int64_t S,
              int64_t H, int64_t K, int64_t hd, int64_t gt, int64_t n_split,
              float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FLASH_DECODE_GT(N)                                                     \
   case N:                                                                      \
-    return launch<TQ, TKV, N>(q, k, v, kv_len, out, part, counters, B, S, H,   \
-                              K, hd, n_split, scale, st);
+    return launch<TQ, TKV, N>(q, k, v, kv_len, out, lse, part, counters, B, S, \
+                              H, K, hd, n_split, scale, st);
   switch (gt) {
     FLASH_DECODE_GT(1) FLASH_DECODE_GT(2) FLASH_DECODE_GT(3) FLASH_DECODE_GT(4)
     FLASH_DECODE_GT(5) FLASH_DECODE_GT(6) FLASH_DECODE_GT(7) FLASH_DECODE_GT(8)
@@ -486,11 +494,11 @@ int flash_decode_tile_positions(int64_t hd) {
 
 #define FLASH_DECODE_ENTRY(NAME, TQ, TKV)                                      \
   int NAME(const void* q, const void* k, const void* v, const void* kv_len,     \
-           void* out, void* part, void* counters, int64_t B, int64_t S,         \
-           int64_t H, int64_t K, int64_t hd, int64_t gt, int64_t n_split,       \
-           float scale, void* stream) {                                         \
-    return dispatch<TQ, TKV>(q, k, v, kv_len, out, part, counters, B, S, H, K,  \
-                             hd, gt, n_split, scale, stream);                   \
+           void* out, void* lse, void* part, void* counters, int64_t B,         \
+           int64_t S, int64_t H, int64_t K, int64_t hd, int64_t gt,             \
+           int64_t n_split, float scale, void* stream) {                        \
+    return dispatch<TQ, TKV>(q, k, v, kv_len, out, lse, part, counters, B, S,   \
+                             H, K, hd, gt, n_split, scale, stream);             \
   }
 
 FLASH_DECODE_ENTRY(flash_decode_f32_f32, float, float)

@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ENTRY_SIGNATURE = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 7
+_ENTRY_SIGNATURE = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 7
                     + [ctypes.c_float, ctypes.c_void_p])
 _SIGNATURES = {f"flash_decode_{a}_{b}": _ENTRY_SIGNATURE
                for a in _DTYPES.values() for b in _DTYPES.values()}
@@ -83,11 +83,13 @@ def counter_buffer(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 kv_len: torch.Tensor) -> torch.Tensor:
+                 kv_len: torch.Tensor, return_lse: bool = False):
     """q [B, H, hd] f32/bf16; k/v [B, S, K, hd] f32/bf16 (one dtype); kv_len
     [B] int32, the valid prefix of each row's cache. H a multiple of K, hd a
     multiple of 8 in [16, 128]. Returns [B, H, hd] f32; query head h reads KV
-    head h // (H // K)."""
+    head h // (H // K). With ``return_lse`` also [B, H] f32, the log-sum-exp
+    of each (row, head)'s scaled scores, from the final running max and
+    sum."""
     global launches
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES:
         raise TypeError(f"flash_decode: q, k, v must be float32 or bfloat16, "
@@ -120,8 +122,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: {gt} query heads per block at head "
                          f"dim {hd} do not fit one block's shared memory")
     out = torch.empty((B, H, hd), dtype=torch.float32, device=device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=device) if return_lse else None
     if B == 0:
-        return out
+        return (out, lse) if return_lse else out
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _SM_COUNT:
         _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
@@ -137,8 +140,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     entry = getattr(lib, f"flash_decode_{_DTYPES[q.dtype]}_{_DTYPES[k.dtype]}")
     with torch.cuda.device(device):
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                    out.data_ptr(), part_ptr, counters_ptr, B, S, H, K, hd, gt,
+                    out.data_ptr(), None if lse is None else lse.data_ptr(), part_ptr, counters_ptr, B, S, H, K, hd, gt,
                     n_split, 1.0 / math.sqrt(hd), stream)
     build.check_launch("flash_decode", err)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -36,8 +36,11 @@ def cache_probe_ref(tag_table, tag_row, data, q_table, q_row, sets):
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
-    """q [B, H, hd]; k/v [B, S, K, hd]; kv_len [B]. Returns [B, H, hd] f32.
+                     kv_len: torch.Tensor, return_lse: bool = False):
+    """q [B, H, hd]; k/v [B, S, K, hd]; kv_len [B]. Returns [B, H, hd] f32,
+    and with ``return_lse`` also the log-sum-exp of each (row, head)'s
+    scaled, masked scores [B, H] f32 (what merges attention over disjoint
+    key ranges).
 
     Query head h reads KV head h // (H // K). Positions at or past
     ``kv_len`` score -1e30, so a row with ``kv_len == 0`` averages v over
@@ -51,4 +54,5 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = torch.arange(S, device=k.device)[None, :] < kv_len[:, None]   # [B, S]
     scores = scores.masked_fill(~mask[:, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhs,bshd->bhd", probs, vr)
+    out = torch.einsum("bhs,bshd->bhd", probs, vr)
+    return (out, torch.logsumexp(scores, dim=-1)) if return_lse else out

@@ -15,6 +15,14 @@ diagonal ``seg`` is a positive sum of ``-dA`` that overflows ``exp`` at the
 configs' chunk of 256, and the reference's masked ``inf`` times a zero
 cotangent makes its grads NaN; masking before the ``exp`` gives the same
 values, and grads that are finite there (ROADMAP.md section 3).
+
+On DTensors (the launch tooling's traces) both the chunked scan and the
+decode step run on each device's shards through ``local_map``: the batch
+shard (the sequence gathered once, as the reference's exact constraint
+does), the heads the plan gives the model axis (``ssd_heads``) with their
+projections, convolution channels and output rows, the FSDP shards of the
+weights gathered; the output is a partial sum over the head-splitting mesh
+axes. Head counts are read from the weights' local shapes.
 """
 from __future__ import annotations
 
@@ -64,13 +72,56 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return F.silu(out + b)
 
 
+def _local_ssd(body, params, u, cache=None):
+    """Run ``body(params, u[, cache])`` on each device's shards (the
+    module docstring). ``cache`` (decode) keeps its own placements and
+    sets the batch's; it is updated in place."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.models import layers as L
+    names = tuple(params)
+    mesh = u.device_mesh
+    w_pl = [L.gathered(params[n]) for n in names]
+    heads = {i for i, p in enumerate(L.gathered(params["x_proj"])) if isinstance(p, Shard)}
+    if cache is None:
+        u_pl = L.placements_for(mesh, ("batch", None, None))
+        bshard = {i for i, p in enumerate(u_pl) if isinstance(p, Shard)}
+        c_names, c_pl = (), []
+    else:
+        c_names = tuple(cache)
+        c_pl = [cache[n].placements for n in c_names]
+        bshard = {i for i, p in enumerate(cache["state"].placements)
+                  if isinstance(p, Shard) and p.dim == 0}
+        u_pl = tuple(Shard(0) if i in bshard else Replicate() for i in range(mesh.ndim))
+    y_pl = tuple(Shard(0) if i in bshard else Partial() if i in heads else Replicate()
+                 for i in range(mesh.ndim))
+    outs = [y_pl]
+    if cache is None:
+        outs.append(tuple(Shard(0) if i in bshard else Shard(1) if i in heads else Replicate()
+                          for i in range(mesh.ndim)))
+
+    def fn(u, *flat):
+        p = dict(zip(names, flat[:len(names)]))
+        if cache is None:
+            return body(p, u)
+        return body(p, u, dict(zip(c_names, flat[len(names):])))
+
+    return L.run_local(fn, (u,) + tuple(params[n] for n in names) +
+                       tuple(cache[n] for n in c_names),
+                       [u_pl] + w_pl + c_pl, outs)
+
+
 def ssd_forward(params: Mapping[str, torch.Tensor], u: torch.Tensor, cfg,
                 initial_state: Optional[torch.Tensor] = None):
     """u [B, S, d_model] -> (y [B, S, d_model], final state [B, H, hd, N]).
     A sequence that is not a multiple of the chunk is padded to one and the
     padded outputs trimmed, as the reference does."""
+    from repro_torch.models.layers import is_dtensor
+    if is_dtensor(u) and initial_state is None:
+        return _local_ssd(lambda p, x: ssd_forward(p, x, cfg), params, u)
     B, S, d = u.shape
-    di, N, H, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    N, hd = cfg.ssm_state, cfg.ssm_head_dim
+    di, H = params["x_proj"].shape[-1], params["A_log"].shape[-1]
     Q = min(cfg.ssm_chunk, S)
     if S % Q:
         out, state = ssd_forward(params, F.pad(u, (0, 0, 0, Q - S % Q)), cfg, initial_state)
@@ -157,8 +208,12 @@ def ssd_decode_step(params: Mapping[str, torch.Tensor], u: torch.Tensor,
     one layer. ``cache`` (one layer's ``state``, ``conv_x``, ``conv_b``,
     ``conv_c``) is updated in place, the state kept in the cache's dtype
     between steps, as the reference stores it."""
+    from repro_torch.models.layers import is_dtensor
+    if is_dtensor(cache["state"]):
+        return _local_ssd(lambda p, x, c: ssd_decode_step(p, x, c, cfg), params, u, cache)
     B = u.shape[0]
-    di, H, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    hd = cfg.ssm_head_dim
+    di, H = params["x_proj"].shape[-1], params["A_log"].shape[-1]
     acc = torch.promote_types(u.dtype, torch.float32)   # f32, or f64 for f64 input
 
     z = torch.einsum("bsd,dk->bsk", u, params["z_proj"])

@@ -49,8 +49,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (attention_out, cross_attention, ffn, init_kv_cache,
-                                      rms_norm, self_attention)
+from repro_torch.models.layers import (attention_out, cotangent_constraint, cross_attention,
+                                      ffn, init_kv_cache, is_dtensor, local_einsum,
+                                      logical_constraint, project, reduce_partial, rms_norm,
+                                      self_attention)
 from repro_torch.models.moe import init_moe, moe_ffn, moe_shapes
 from repro_torch.models.ssd import (init_ssd, init_ssd_cache, ssd_decode_step, ssd_forward,
                                     ssd_shapes)
@@ -154,6 +156,41 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     if cfg.family == "vlm":
         params["cross"] = draw(cross_shapes(cfg), (n_cross(cfg),))
     return params
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The shape of every leaf of :func:`init_params`'s pytree."""
+    _check_family(cfg)
+
+    def lead(shapes, n):
+        return {k: lead(v, n) if isinstance(v, dict) else n + tuple(v)
+                for k, v in shapes.items()}
+
+    tree = {"blocks": lead(block_shapes(cfg), (cfg.num_layers,)),
+            "embed": (cfg.vocab_size, cfg.d_model), "final_norm": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    if cfg.family == "hybrid":
+        tree["shared"] = lead(shared_shapes(cfg), ())
+    if cfg.family == "vlm":
+        tree["cross"] = lead(cross_shapes(cfg), (n_cross(cfg),))
+    return tree
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16, *, device="cuda",
+                    fake_mode=None) -> dict:
+    """:func:`init_params`'s pytree as fake tensors of ``dtype`` on
+    ``device`` (``FakeTensorMode``, ``fake_mode`` or a new one): shapes and
+    dtypes only, nothing drawn or allocated; no card is needed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mode = fake_mode or FakeTensorMode()
+
+    def make(t):
+        if isinstance(t, dict):
+            return {k: make(v) for k, v in t.items()}
+        return torch.empty(t, dtype=dtype, device=device)
+    with mode:
+        return make(param_shapes(cfg))
 
 
 class Block(nn.Module):
@@ -273,21 +310,26 @@ def params_from_jax(model: LM, params: Mapping) -> LM:
 # ---------------------------------------------------------------------------
 
 
+_ACT = ("batch", "act_seq", None)   # the residual stream's logical dims
+
+
 def _attn_block(blk, x, positions, cfg, kv_cache=None, cache_index=None,
-                use_kernel=True):
+                use_kernel=True, static_moe=False):
     """Attention, then the MLP or (MoE family) the MoE FFN. Returns (x, the
-    cache or None, the MoE aux loss or None)."""
-    h, new_kv = self_attention(blk.attn, rms_norm(x, blk.ln1, cfg.norm_eps),
-                               positions, cfg, kv_cache=kv_cache,
+    cache or None, the MoE aux loss or None). The sharding constraints are
+    the reference's (no-ops on plain tensors)."""
+    x = logical_constraint(x, *_ACT)
+    xin = cotangent_constraint(rms_norm(x, blk.ln1, cfg.norm_eps), *_ACT)
+    h, new_kv = self_attention(blk.attn, xin, positions, cfg, kv_cache=kv_cache,
                                cache_index=cache_index, use_kernel=use_kernel)
-    x = x + h
-    x2 = rms_norm(x, blk.ln2, cfg.norm_eps)
+    x = x + logical_constraint(h, *_ACT)
+    x2 = cotangent_constraint(rms_norm(x, blk.ln2, cfg.norm_eps), *_ACT)
     aux = None
     if cfg.family == "moe":
-        h2, aux = moe_ffn(blk.moe, x2, cfg)
+        h2, aux = moe_ffn(blk.moe, x2, cfg, static_capacity=static_moe)
     else:
         h2 = ffn(blk.mlp, x2, cfg.ffn_gated)
-    return x + h2, new_kv, aux
+    return logical_constraint(x + logical_constraint(h2, *_ACT), *_ACT), new_kv, aux
 
 
 def _ssm_block(blk, x, cfg, ssd_cache=None):
@@ -295,7 +337,8 @@ def _ssm_block(blk, x, cfg, ssd_cache=None):
     the sequence, or one recurrent step updating ``ssd_cache`` in place."""
     u = rms_norm(x, blk.ln1, cfg.norm_eps)
     if ssd_cache is None:
-        return x + ssd_forward(blk.ssd, u, cfg)[0]
+        h = logical_constraint(ssd_forward(blk.ssd, u, cfg)[0], *_ACT)
+        return logical_constraint(x + h, *_ACT)
     return x + ssd_decode_step(blk.ssd, u, ssd_cache, cfg)
 
 
@@ -304,9 +347,9 @@ def _cross_block(blk, x, images, cfg):
     q from the normed x, k and v from the raw images, added to the
     residual as ``x + tanh(gate) * out``. Returns (x, k, v), k and v the
     images' keys and values [B, T_img, K, hd]."""
-    q = torch.einsum("bsd,dhk->bshk", rms_norm(x, blk.ln, cfg.norm_eps), blk.attn["wq"])
-    k = torch.einsum("bsd,dhk->bshk", images, blk.attn["wk"])
-    v = torch.einsum("bsd,dhk->bshk", images, blk.attn["wv"])
+    q = project(rms_norm(x, blk.ln, cfg.norm_eps), blk.attn["wq"], "heads")
+    k = project(images, blk.attn["wk"], "kv_heads")
+    v = project(images, blk.attn["wv"], "kv_heads")
     out = attention_out(blk.attn, cross_attention(q, k, v))
     return x + torch.tanh(blk.gate) * out, k, v
 
@@ -315,7 +358,7 @@ def _cross_block_cached(blk, x, kv, cfg, use_kernel=True):
     """The cross layer of a decode step, onto the cached image keys and
     values (``kv``: one section's ``k``, ``v`` [B, T_img, K, hd]); one query
     position goes through the ``flash_decode`` kernel."""
-    q = torch.einsum("bsd,dhk->bshk", rms_norm(x, blk.ln, cfg.norm_eps), blk.attn["wq"])
+    q = project(rms_norm(x, blk.ln, cfg.norm_eps), blk.attn["wq"], "heads")
     attn = cross_attention(q, kv["k"], kv["v"], decode=True, use_kernel=use_kernel)
     return x + torch.tanh(blk.gate) * attention_out(blk.attn, attn)
 
@@ -360,7 +403,7 @@ def _add(total, aux):
     return aux if total is None else total if aux is None else total + aux
 
 
-def _run_units(units, x, positions, cfg, images=None, cross_kv=None):
+def _run_units(units, x, positions, cfg, images=None, cross_kv=None, static_moe=False):
     """Prefill or train through ``units``. Returns (x, summed aux or None).
     A list ``cross_kv`` collects each cross layer's image (k, v)."""
     aux = None
@@ -372,7 +415,7 @@ def _run_units(units, x, positions, cfg, images=None, cross_kv=None):
             if cross_kv is not None:
                 cross_kv.append((k, v))
         else:
-            x, _, a = _attn_block(blk, x, positions, cfg)
+            x, _, a = _attn_block(blk, x, positions, cfg, static_moe=static_moe)
             aux = _add(aux, a)
     return x, aux
 
@@ -380,7 +423,8 @@ def _run_units(units, x, positions, cfg, images=None, cross_kv=None):
 def _logits(model, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
     head = model.embed.T if model.lm_head is None else model.lm_head
-    return torch.einsum("bsd,dv->bsv", x, head)
+    return logical_constraint(local_einsum("bsd,dv->bsv", x, head, ("batch", None, None)),
+                              "batch", None, "vocab")
 
 
 def _layer_views(stacked: Mapping, n: int) -> list:
@@ -401,6 +445,8 @@ class _TreeView:
     per layer of the stacked ``[L, ...]`` block leaves and of the VLM's
     ``[n_cross, ...]`` cross leaves (so gradients flow to the stacked
     leaves)."""
+
+    use_kernels = True
 
     def __init__(self, params: Mapping, cfg: ModelConfig):
         _check_family(cfg)
@@ -429,7 +475,7 @@ def _inputs(cfg, tokens, frames, images) -> None:
 
 def forward(model, tokens: torch.Tensor = None, *, frames: torch.Tensor = None,
             images: torch.Tensor = None, mode: str = "prefill", return_aux: bool = False,
-            return_cache: bool = False):
+            return_cache: bool = False, static_moe: bool = False):
     """tokens [B, S] int (``frames`` [B, S, d] for the encoder; the VLM's
     ``images`` [B, T_img, d] beside its tokens) -> logits [B, S, V], as the
     reference's ``forward``; with ``return_aux`` also the MoE layers' summed
@@ -445,7 +491,8 @@ def forward(model, tokens: torch.Tensor = None, *, frames: torch.Tensor = None,
     block; each VLM section, the images an input of its checkpoint), with
     ``torch.utils.checkpoint`` (non-reentrant), as the reference remats.
     ``model`` is an ``LM`` or the view :func:`loss_fn` makes of a params
-    pytree."""
+    pytree. ``static_moe`` runs the MoE layers at their static capacity
+    (``moe.moe_ffn``), as the launch tooling's traced steps do."""
     if mode not in ("prefill", "train"):
         raise ValueError(f"mode {mode!r}: expected 'prefill' or 'train'")
     cfg = model.cfg
@@ -456,21 +503,23 @@ def forward(model, tokens: torch.Tensor = None, *, frames: torch.Tensor = None,
     cross_kv = [] if return_cache else None
     if mode == "prefill":
         with torch.no_grad():
-            x = frames if tokens is None else model.embed[tokens.long()]
+            x = frames if tokens is None else F.embedding(tokens.long(), model.embed)
+            x = logical_constraint(reduce_partial(x), *_ACT)
             B, S = x.shape[:2]
             positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-            x, aux = _run_units(units, x, positions, cfg, images, cross_kv)
+            x, aux = _run_units(units, x, positions, cfg, images, cross_kv, static_moe)
             logits = _logits(model, x)
     else:
         # F.embedding: a deterministic backward on the card
         x = frames if tokens is None else F.embedding(tokens.long(), model.embed)
+        x = logical_constraint(reduce_partial(x), *_ACT)
         B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         span = _remat_span(cfg)
         aux = None
         for i in range(0, len(units), span):
             x, a = checkpoint(_run_units, units[i:i + span], x, positions, cfg, images,
-                              use_reentrant=False)
+                              None, static_moe, use_reentrant=False)
             aux = _add(aux, a)
         logits = _logits(model, x)
     out = [logits]
@@ -488,20 +537,60 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
     """Cross entropy: logsumexp minus the label's logit, in f32, plus
     ``aux_weight * aux``."""
     x = logits.to(torch.float32)
+    if is_dtensor(x):
+        lse, label_logit = _vocab_parallel_terms(x, labels)
+        return reduce_partial(torch.mean(lse - label_logit)) + aux_weight * aux
     lse = torch.logsumexp(x, dim=-1)                                  # [B, S]
     label_logit = torch.gather(x, -1, labels.long()[..., None])[..., 0]
     return torch.mean(lse - label_logit) + aux_weight * aux
 
 
-def loss_fn(params: Mapping, batch: Mapping, cfg: ModelConfig) -> torch.Tensor:
+def _vocab_parallel_terms(x, labels):
+    """The loss's logsumexp and label logit of vocab-sharded DTensor logits
+    [B, S, V], as the reference computes them: vocab-dim reductions that
+    finish with small all-reduces, the logits never gathered. The label
+    logit is picked from each device's vocab slice (zero where the label
+    lies elsewhere), a partial sum over the vocab's mesh axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.models.layers import _from_local, _shard_offset
+    x = logical_constraint(x, "batch", None, "vocab")
+    m = x.detach().amax(dim=-1, keepdim=True)
+    lse = logical_constraint((m + torch.log(torch.exp(x - m).sum(-1, keepdim=True)))[..., 0],
+                             "batch", None)
+    mesh, pl = x.device_mesh, x.placements
+    lab_pl = tuple(p if isinstance(p, Shard) and p.dim < 2 else Replicate() for p in pl)
+    lab = labels if is_dtensor(labels) else _from_local(
+        labels, mesh, [Replicate()] * mesh.ndim, tuple(labels.shape))
+    lab = lab.redistribute(mesh, lab_pl).to_local().long()
+    x_loc = x.to_local()
+    idx = lab - _shard_offset(x, 2)[0]
+    ok = (idx >= 0) & (idx < x_loc.shape[-1])
+    val = torch.gather(x_loc, -1, idx.clamp(0, x_loc.shape[-1] - 1)[..., None])[..., 0] * ok
+    out_pl = tuple(Partial() if isinstance(p, Shard) and p.dim == 2 else q
+                   for p, q in zip(pl, lab_pl))
+    return lse, _from_local(val, mesh, out_pl, tuple(x.shape[:2]))
+
+
+def loss_fn(params: Mapping, batch: Mapping, cfg: ModelConfig, *,
+            static_moe: bool = False) -> torch.Tensor:
     """The reference's ``loss_fn`` on its params pytree: batch ``tokens``
     (the encoder's ``frames`` [B, S, d] instead; the VLM's ``images``
     [B, T_img, d] beside) and ``labels`` [B, S]; the MoE family adds 0.01 x
     its aux loss."""
     logits, aux = forward(_TreeView(params, cfg), batch.get("tokens"),
                           frames=batch.get("frames"), images=batch.get("images"),
-                          mode="train", return_aux=True)
+                          mode="train", return_aux=True, static_moe=static_moe)
     return lm_loss(logits, batch["labels"], aux)
+
+
+def prefill_step(params: Mapping, batch: Mapping, cfg: ModelConfig, *,
+                 static_moe: bool = False) -> torch.Tensor:
+    """The reference's ``prefill_step``: prefill logits [B, S, V] of the
+    params pytree on ``batch`` (``tokens``, or the encoder's ``frames``;
+    the VLM's ``images`` beside)."""
+    return forward(_TreeView(params, cfg), batch.get("tokens"), frames=batch.get("frames"),
+                   images=batch.get("images"), static_moe=static_moe)
 
 
 # ---------------------------------------------------------------------------
@@ -593,6 +682,38 @@ class VLMCache:
         return self
 
 
+def cache_tree(cache) -> dict:
+    """A decode cache in the reference's ``init_cache`` layout: ``kv``
+    (``k``, ``v``, ``pos``, ``valid``), ``ssd`` (``state``, ``conv_x``,
+    ``conv_b``, ``conv_c``), and the VLM's ``cross_kv`` (``k``, ``v``)."""
+    def kv(c):
+        return {"k": c.k, "v": c.v, "pos": c.pos, "valid": c.valid}
+
+    def ssd(c):
+        return {"state": c.state, "conv_x": c.conv_x, "conv_b": c.conv_b, "conv_c": c.conv_c}
+    if isinstance(cache, KVCache):
+        return {"kv": kv(cache)}
+    if isinstance(cache, SSDCache):
+        return {"ssd": ssd(cache)}
+    if isinstance(cache, HybridCache):
+        return {"ssd": ssd(cache.ssd), "kv": kv(cache.kv)}
+    return {"kv": kv(cache.kv), "cross_kv": {"k": cache.cross_k, "v": cache.cross_v}}
+
+
+def cache_from_tree(cfg: ModelConfig, tree: Mapping, length: int = 0):
+    """The port's cache object of ``cfg``'s family holding the tensors of a
+    :func:`cache_tree` layout, ``length`` positions written."""
+    if "kv" in tree:
+        kv = KVCache(**tree["kv"], length=length)
+    if cfg.family == "ssm":
+        return SSDCache(**tree["ssd"], length=length)
+    if cfg.family == "hybrid":
+        return HybridCache(SSDCache(**tree["ssd"], length=length), kv)
+    if cfg.family == "vlm":
+        return VLMCache(kv, tree["cross_kv"]["k"], tree["cross_kv"]["v"])
+    return kv
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda"):
     """Zeroed decode cache; bf16 by default, as the reference serves: a
@@ -619,7 +740,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 @torch.no_grad()
-def decode_step(model: LM, cache, tokens: torch.Tensor, pos: int):
+def decode_step(model: LM, cache, tokens: torch.Tensor, pos: int, *,
+                static_moe: bool = False):
     """One token for every sequence: tokens [B, 1] at host position ``pos``.
     Returns (logits [B, 1, V], cache), the cache updated in place. The
     encoder has no decode step and raises.
@@ -638,7 +760,8 @@ def decode_step(model: LM, cache, tokens: torch.Tensor, pos: int):
                          f"0..{cache.length - 1}: positions are written in order")
     kv = cache.kv if isinstance(cache, (HybridCache, VLMCache)) else cache
     ssd = cache.ssd if isinstance(cache, HybridCache) else cache
-    x = model.embed[tokens.long()]
+    x = logical_constraint(reduce_partial(F.embedding(tokens.long(), model.embed)),
+                           "batch", None, None)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     n_kv = n_ssd = n_x = 0
     for kind, blk in _units(model):
@@ -651,7 +774,8 @@ def decode_step(model: LM, cache, tokens: torch.Tensor, pos: int):
             n_x += 1
         else:
             x, _, _ = _attn_block(blk, x, positions, cfg, kv_cache=kv.layer(n_kv),
-                                  cache_index=pos, use_kernel=model.use_kernels)
+                                  cache_index=pos, use_kernel=model.use_kernels,
+                                  static_moe=static_moe)
             n_kv += 1
     cache.length = pos + 1
     return _logits(model, x), cache

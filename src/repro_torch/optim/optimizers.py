@@ -30,15 +30,46 @@ def _full(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
+def elementwise(fn: Callable, *xs):
+    """``fn(*xs)`` of same-shaped tensors (0-d ones broadcast). On DTensors
+    placed alike (the launch tooling's traced train steps: grads pinned to
+    their params' placements, moments sharded as the params) it runs on
+    each device's shards, placed as the first: an elementwise function
+    needs no collective, and DTensor need not propagate its every
+    operator. Returns what ``fn`` returns, each tensor placed so."""
+    from torch.distributed.tensor import DTensor
+    first = xs[0]
+    if not isinstance(first, DTensor):
+        return fn(*xs)
+    out = fn(*[x.to_local() if isinstance(x, DTensor) else x for x in xs])
+
+    def wrap(t):
+        return DTensor.from_local(t, first.device_mesh, first.placements, run_check=False,
+                                  shape=first.shape, stride=first.stride())
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """sum(x ** 2) in f32; on a DTensor, each device's shard's sum, a
+    partial sum over the mesh dims that shard it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(x, DTensor):
+        return torch.sum(torch.square(x.to(torch.float32)))
+    local = torch.sum(torch.square(x.to_local().to(torch.float32)))
+    return DTensor.from_local(local, x.device_mesh,
+                              [Replicate() if p.is_replicate() else Partial()
+                               for p in x.placements], run_check=False, shape=(), stride=())
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+    return torch.sqrt(sum(_sum_squares(x) for x in leaves(tree)))
 
 
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
     scale = torch.clamp(torch.div(_full(max_norm, norm), norm + 1e-9), max=1.0)
-    return tree_map(lambda x: (x.to(torch.float32) * scale).to(x.dtype), tree), norm
+    return tree_map(lambda x: elementwise(
+        lambda x, s: (x.to(torch.float32) * s).to(x.dtype), x, scale), tree), norm
 
 
 def _cosf():
@@ -95,6 +126,8 @@ class AdamW:
         return {"m": tree_map(_zeros_f32, params), "v": tree_map(_zeros_f32, params)}
 
     def update(self, grads, opt_state, params, step):
+        if hasattr(step, "to_local"):      # a replicated DTensor: the updates run locally
+            step = step.to_local()
         lr = self.lr(step) if callable(self.lr) else self.lr
         b1, b2 = self.b1, self.b2
         t = step.to(torch.float32) + 1.0
@@ -112,8 +145,8 @@ class AdamW:
                 u = u + self.weight_decay * p.to(torch.float32)
             return (-lr * u).to(p.dtype), m, v
 
-        out = [upd(*a) for a in zip(leaves(grads), leaves(opt_state["m"]),
-                                    leaves(opt_state["v"]), leaves(params))]
+        out = [elementwise(upd, *a) for a in zip(leaves(grads), leaves(opt_state["m"]),
+                                                 leaves(opt_state["v"]), leaves(params))]
         return (unflatten(grads, [o[0] for o in out]),
                 {"m": unflatten(grads, [o[1] for o in out]),
                  "v": unflatten(grads, [o[2] for o in out])})
@@ -141,7 +174,8 @@ class SGD:
 
 
 def apply_updates(params, updates):
-    return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+    return tree_map(lambda p, u: elementwise(lambda p, u: p + u.to(p.dtype), p, u),
+                    params, updates)
 
 
 def TrainState(params, optimizer) -> dict:
@@ -164,6 +198,22 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return loss.detach(), unflatten(params, list(grads))
 
 
+def microbatch(x: torch.Tensor, M: int, i: int) -> torch.Tensor:
+    """Microbatch i of M of a batch leaf, split on its leading dim: rows
+    ``i * B/M .. (i+1) * B/M``. A DTensor whose batch is sharded splits
+    each device's own rows instead (the data-parallel microbatch), so no
+    row moves between devices."""
+    from torch.distributed.tensor import DTensor, Shard
+    if isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == 0
+                                      for p in x.placements):
+        local = x.to_local()
+        part = local.reshape((M, local.shape[0] // M) + tuple(local.shape[1:]))[i]
+        shape = (x.shape[0] // M,) + tuple(x.shape[1:])
+        return DTensor.from_local(part, x.device_mesh, x.placements, run_check=False,
+                                  shape=shape, stride=torch.empty(shape, device="meta").stride())
+    return x.reshape((M, x.shape[0] // M) + tuple(x.shape[1:]))[i]
+
+
 def make_train_step(loss_fn: Callable, optimizer, *, clip_norm: Optional[float] = 1.0,
                     grad_transform: Optional[Callable] = None,
                     microbatches: int = 1):
@@ -178,11 +228,11 @@ def make_train_step(loss_fn: Callable, optimizer, *, clip_norm: Optional[float] 
         if microbatches == 1:
             return value_and_grad(loss_fn, params, batch)
         M = microbatches
-        mb = tree_map(lambda x: x.reshape((M, x.shape[0] // M) + tuple(x.shape[1:])), batch)
         acc = tree_map(_zeros_f32, params)
         loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
         for i in range(M):
-            li, gi = value_and_grad(loss_fn, params, tree_map(lambda x: x[i], mb))
+            li, gi = value_and_grad(loss_fn, params,
+                                    tree_map(lambda x: microbatch(x, M, i), batch))
             loss = loss + li
             acc = tree_map(lambda a, g: a + g.to(torch.float32), acc, gi)
         m = _full(M, loss)
