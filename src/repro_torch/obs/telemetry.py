@@ -14,7 +14,7 @@ engines, `ClusterSim`). The contract:
   order so merged registries are bit-equal across serial / thread /
   process execution.
 
-A copy of ``repro.obs.telemetry``.
+A copy of ``repro.obs.telemetry``, plus ``ObsConfig.wall_spans``.
 """
 from __future__ import annotations
 
@@ -34,12 +34,20 @@ class ObsConfig:
     span_sample_every: int = 16     # record every k-th occurrence per name
     max_spans: int = 65536          # recorder hard cap (excess -> dropped)
     flight_capacity: int = 512     # flight-recorder ring size
+    wall_spans: bool = False        # a ``wall`` recorder on the Unix clock
 
 
 class Telemetry:
-    """Per-host telemetry bundle. Construct via :func:`make_telemetry`."""
+    """Per-host telemetry bundle. Construct via :func:`make_telemetry`.
 
-    __slots__ = ("registry", "tracer", "recorder", "host", "config")
+    ``wall`` is ``None`` unless ``config.wall_spans``: then a second
+    :class:`SpanRecorder`, unsampled and capped at ``max_spans``, whose
+    spans the serving engine stamps from ``time.time_ns()`` (Unix µs, the
+    clock ``torch.profiler``'s kineto records are converted to). It is the
+    plane's one wallclock, kept apart from ``tracer`` so the simulated-clock
+    trace and every report stay byte-identical with it on."""
+
+    __slots__ = ("registry", "tracer", "recorder", "host", "config", "wall")
 
     def __init__(self, config: ObsConfig = ObsConfig(), host: str = ""):
         self.config = config
@@ -49,6 +57,8 @@ class Telemetry:
                                    max_events=config.max_spans, host=host)
         self.recorder = FlightRecorder(capacity=config.flight_capacity,
                                        host=host)
+        self.wall = (SpanRecorder(sample_every=1, max_events=config.max_spans,
+                                  host=host) if config.wall_spans else None)
 
     def reset(self) -> None:
         """Drop everything recorded so far (used by ``reset_measurement``
@@ -56,6 +66,8 @@ class Telemetry:
         self.registry = MetricsRegistry()
         self.tracer.reset()
         self.recorder.reset()
+        if self.wall is not None:
+            self.wall.reset()
 
 
 def make_telemetry(flag, host: str = "") -> Optional[Telemetry]:
@@ -95,4 +107,6 @@ def merge_telemetry(
         merged.registry.merge(tel.registry)
         merged.tracer.absorb(tel.tracer, host=name)
         merged.recorder.absorb(tel.recorder, host=name)
+        if merged.wall is not None and tel.wall is not None:
+            merged.wall.absorb(tel.wall, host=name)
     return merged

@@ -1,8 +1,12 @@
-"""Sampling span recorder on the simulated clock.
+"""Sampling span recorder; the clock is the caller's.
 
-Spans are stamped with **simulated microseconds** (`at_us` from the serve
-scheduler / device clock), never wallclock — the recorder consumes no RNG
-and no `time.*`, so the same seeded run produces a byte-identical trace.
+The recorder reads no clock and consumes no RNG: spans are stamped in
+whatever microseconds the caller hands it. ``Telemetry.tracer`` is fed
+**simulated microseconds** (`at_us` from the serve scheduler / device
+clock), never wallclock, so the same seeded run produces a byte-identical
+trace. ``Telemetry.wall`` (``ObsConfig.wall_spans``) is fed Unix µs from
+``time.time_ns()``, the clock of ``torch.profiler``'s kineto records, so
+the serving engine's host spans lie on the card's device trace.
 
 Sampling is deterministic: each span *name* keeps its own occurrence
 counter and every ``sample_every``-th occurrence is recorded (the first is
@@ -14,10 +18,11 @@ records into its own recorder which is absorbed in host order.
 Export is Chrome trace-event JSON (the ``{"traceEvents": [...]}`` form)
 loadable in Perfetto / ``chrome://tracing``: hosts map to numeric pids and
 span categories to tids, named via ``process_name`` / ``thread_name``
-metadata events. A copy of ``repro.obs.tracing``.
+metadata events. A copy of ``repro.obs.tracing``, plus :class:`WallSpans`.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 # Event tuples: (ts_us, dur_us, ph, name, cat, pid_label, args)
@@ -124,3 +129,42 @@ class SpanRecorder:
         return {"traceEvents": meta + out,
                 "displayTimeUnit": "ms",
                 "otherData": {"dropped_events": self.dropped}}
+
+
+class WallSpans:
+    """Nested wall-clock spans of one call, recorded into a ``wall``
+    :class:`SpanRecorder` in Unix µs.
+
+    Each boundary is one ``time.time_ns()`` read, shared by the span it
+    closes and the one it starts, so adjacent spans meet exactly. Every
+    span carries ``call`` and ``parent`` (the enclosing span's name, or
+    ``None``); the category is ``engine``."""
+
+    __slots__ = ("rec", "call", "t", "stack")
+
+    def __init__(self, rec: SpanRecorder, call: int):
+        self.rec, self.call = rec, call
+        self.stack: List[tuple] = []
+        self.t = time.time_ns()
+
+    def open(self, name: str) -> None:
+        """Open an enclosing span at the last boundary (no clock read)."""
+        self.stack.append((name, self.t))
+
+    def lap(self, name: str) -> None:
+        """Record ``name`` from the last boundary to now."""
+        t = time.time_ns()
+        self._record(name, self.t, t)
+        self.t = t
+
+    def close(self) -> None:
+        """Close the innermost open span now."""
+        t = time.time_ns()
+        name, t0 = self.stack.pop()
+        self._record(name, t0, t)
+        self.t = t
+
+    def _record(self, name: str, t0: int, t1: int) -> None:
+        self.rec.record(name, "engine", t0 / 1e3, (t1 - t0) / 1e3,
+                        call=self.call,
+                        parent=self.stack[-1][0] if self.stack else None)

@@ -20,6 +20,15 @@ analytic ``IOEngine`` prices each query's IO under Eq. 3.
 ``serve_columnar`` is the trace plane's entry: a columnar (CSR) chunk of a
 workload trace is densified on the host (``dense_from_chunk``) into a
 ragged, padded ``[B, T, P]`` block with a valid mask and served as above.
+
+With a ``telemetry`` handle whose ``wall`` recorder is on
+(``ObsConfig(wall_spans=True)``), each call records wall-clock spans on
+the clock of ``torch.profiler``'s device records: ``engine.serve`` >
+``engine.densify``, ``engine.validate``, ``engine.h2d``, ``engine.step``
+(> ``step.probe``, ``step.hit_pool``, ``step.miss_pool``, ``step.dedupe``,
+``step.fill``), ``engine.d2h``, ``engine.account``; and the counters
+``engine.slots`` (B*T*P) and ``engine.valid_keys``. Without it the
+engine reads no clock.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch.core.io_sim import DeviceModel, IOEngine, IOQueueConfig
 from repro_torch.core.quant import quantize_rows, row_bytes
 from repro_torch.core.sdm import QueryStats
 from repro_torch.kernels import ops
+from repro_torch.obs.tracing import WallSpans
 
 
 def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
@@ -127,17 +137,29 @@ class DeviceServingEngine:
         self.io = IOEngine(device, cfg.num_devices, cfg.io_queue)
         self.stats = QueryStats()        # store-level totals, host-plane shape
         self.telemetry = None            # obs handle; None = bit-invisible
+        self._wall_calls = 0             # calls served with wall spans on
         self.table_slot = {t: i for i, t in enumerate(self.table_ids)}
 
     # -- device step ----------------------------------------------------------
 
-    def _step(self, idx: torch.Tensor, valid: torch.Tensor
+    def _wall(self) -> Optional[WallSpans]:
+        """A new call's wall spans; None unless the ``wall`` recorder is on."""
+        tel = self.telemetry
+        if tel is None or tel.wall is None:
+            return None
+        self._wall_calls += 1
+        return WallSpans(tel.wall, self._wall_calls)
+
+    def _step(self, idx: torch.Tensor, valid: torch.Tensor,
+              ws: Optional[WallSpans] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """idx [B, T, P] int32, valid [B, T, P] bool, both on the device ->
         (pooled [B, T, D] f32, deduped miss counts [B, T]). The cache is
         keyed by table slot (0..T-1), not table id."""
         cache, use_kernels = self.cache, self.cfg.use_kernels
         B, T, P = idx.shape
+        if ws is not None:
+            ws.open("engine.step")
         # padded positions may hold any value (the reference's gathers clamp
         # them; torch's raise): they are masked out of pooling, IO and the
         # fill, so read row 0 of their table instead
@@ -147,8 +169,12 @@ class DeviceServingEngine:
         tq, rq, vq = tids.reshape(-1), idx.reshape(-1), valid.reshape(-1)
         vals, hit, _ = cache.lookup_device(self.state, tq, rq,
                                            use_kernel=use_kernels, valid=vq)
+        if ws is not None:
+            ws.lap("step.probe")
         # hit-side pool straight from HBM cache data
         pooled_hit = (vals * hit[:, None]).reshape(B, T, P, -1).sum(dim=2)
+        if ws is not None:
+            ws.lap("step.hit_pool")
         # miss-side pool fused over the quantized backing store; hits and
         # padded positions point at the zero sentinel row
         grow = (self.offsets[tids.long()] + idx).reshape(-1)    # global row
@@ -157,6 +183,8 @@ class DeviceServingEngine:
             self.payload, self.scale, self.bias,
             gidx.reshape(B * T, P).to(torch.int32),
             use_kernel=use_kernels).reshape(B, T, -1)
+        if ws is not None:
+            ws.lap("step.miss_pool")
         # unique-miss coalescing: group equal global rows with a stable sort;
         # the group head is the first occurrence (-1 is one dead group)
         miss = vq & ~hit
@@ -168,6 +196,8 @@ class DeviceServingEngine:
         first = torch.empty_like(head)
         first[order] = head
         io_mask = miss & first
+        if ws is not None:
+            ws.lap("step.dedupe")
         # fill: dequantize the fetched rows and insert them; duplicates are
         # masked out so one key fills one way. The reference's compiled step
         # contracts q * scale + bias into one fused multiply-add; an 8-bit
@@ -178,8 +208,13 @@ class DeviceServingEngine:
                * self.scale[grow].to(torch.float64)[:, None]
                + self.bias[grow].to(torch.float64)[:, None]).to(torch.float32)
         cache.insert(self.state, tq, rq, deq, mask=io_mask)
+        if ws is not None:
+            ws.lap("step.fill")
         miss_counts = io_mask.reshape(B, T, P).sum(dim=2)
-        return pooled_hit + pooled_miss, miss_counts
+        pooled = pooled_hit + pooled_miss
+        if ws is not None:
+            ws.close()
+        return pooled, miss_counts
 
     # -- serving --------------------------------------------------------------
 
@@ -190,6 +225,11 @@ class DeviceServingEngine:
         ``table_ids``). Returns (pooled [B, T, dim] f32, per-query stats).
         ``valid`` (bool [B, T, P], optional) masks padded positions out of
         pooling, caching and IO accounting."""
+        return self._serve_block(idx, bg_iops, valid, self._wall())
+
+    def _serve_block(self, idx, bg_iops: float, valid,
+                     ws: Optional[WallSpans]
+                     ) -> Tuple[np.ndarray, List[QueryStats]]:
         idx = np.asarray(idx, np.int32)
         if idx.ndim != 3:
             raise ValueError(f"idx must be [B, T, P], got shape {idx.shape}")
@@ -204,10 +244,24 @@ class DeviceServingEngine:
             raise ValueError("row index out of range")
         if idx.shape[0] == 0:            # degenerate empty batch: no device
             return (np.zeros((0, idx.shape[1], self.dim), np.float32), [])
+        if ws is not None:
+            reg = self.telemetry.registry
+            reg.inc("engine.slots", idx.size)
+            reg.inc("engine.valid_keys", int(np.count_nonzero(valid)))
+            ws.lap("engine.validate")
         dev = self.torch_device
-        pooled, miss = self._step(torch.from_numpy(idx).to(dev),
-                                  torch.from_numpy(valid).to(dev))
-        return pooled.cpu().numpy(), self._account(miss.cpu().numpy(), bg_iops)
+        idx_d = torch.from_numpy(idx).to(dev)
+        valid_d = torch.from_numpy(valid).to(dev)
+        if ws is not None:
+            ws.lap("engine.h2d")
+        pooled, miss = self._step(idx_d, valid_d, ws)
+        pooled, miss = pooled.cpu().numpy(), miss.cpu().numpy()
+        if ws is not None:
+            ws.lap("engine.d2h")
+        stats = self._account(miss, bg_iops)
+        if ws is not None:
+            ws.lap("engine.account")
+        return pooled, stats
 
     def serve_columnar(self, chunk: ColumnarChunk, bg_iops: float = 0.0
                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -219,11 +273,19 @@ class DeviceServingEngine:
         if chunk.n_queries == 0:
             return (np.zeros((0, T, self.dim), np.float32),
                     np.zeros(0, np.float64), np.zeros(0, np.int64))
+        ws = self._wall()
+        if ws is not None:
+            ws.open("engine.serve")
         idx, valid = dense_from_chunk(chunk, self.table_slot, T)
-        pooled, stats = self.serve_batch(idx, bg_iops, valid=valid)
-        return (pooled,
-                np.array([s.sm_time_us for s in stats], np.float64),
-                np.array([s.sm_ios for s in stats], np.int64))
+        if ws is not None:
+            ws.lap("engine.densify")
+        pooled, stats = self._serve_block(idx, bg_iops, valid, ws)
+        out = (pooled,
+               np.array([s.sm_time_us for s in stats], np.float64),
+               np.array([s.sm_ios for s in stats], np.int64))
+        if ws is not None:
+            ws.close()
+        return out
 
     def _account(self, miss: np.ndarray, bg_iops: float) -> List[QueryStats]:
         """Per-query IO + Eq. 3 latency accounting for a ``[B, T]`` block of
