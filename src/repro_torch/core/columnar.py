@@ -14,11 +14,13 @@ The serving engines never walk queries in Python. :meth:`ColumnarQueries.
 group` runs **one stable argsort by table over the whole trace** and caches
 a :class:`_Grouping`: segments (and their elements, composite row-cache
 keys and order-invariant pooled-cache hashes) laid out contiguously per
-table, in query order within each table. A :class:`ColumnarChunk` —
-what ``DeviceServingEngine.serve_columnar`` consumes — is then pure slicing:
-each table's share of a query range ``[qs, qe)`` is one contiguous span of
-the grouped arrays (found by ``searchsorted``), so per-chunk per-table
-grouping costs O(tables), not O(batch x tables) Python.
+table, in query order within each table. A :class:`ColumnarChunk`'s table
+views — what the host plane's ``SDMEmbeddingStore.serve_columnar`` consumes —
+are then pure slicing: each table's share of a query range ``[qs, qe)`` is
+one contiguous span of the grouped arrays (found by ``searchsorted``), so
+per-chunk per-table grouping costs O(tables), not O(batch x tables) Python.
+``DeviceServingEngine`` reads the chunk's range of the CSR arrays directly
+(``runtime/engine.py`` ``dense_from_chunk``).
 
 ``requests()`` materializes the dict-of-arrays view once (arrays are views
 into ``values``) — the compatibility adapter for the dict entry points and

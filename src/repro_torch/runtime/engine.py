@@ -18,7 +18,8 @@ The pooled output is the hit-side pool plus the miss-side pool. Only the
 analytic ``IOEngine`` prices each query's IO under Eq. 3.
 
 ``serve_columnar`` is the trace plane's entry: a columnar (CSR) chunk of a
-workload trace is densified on the host (``dense_from_chunk``) into a
+workload trace is densified on the host (``dense_from_chunk``, one
+vectorized pass over the trace's CSR arrays, no loop over tables) into a
 ragged, padded ``[B, T, P]`` block with a valid mask and served as above.
 
 With a ``telemetry`` handle whose ``wall`` recorder is on
@@ -55,30 +56,50 @@ def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
     ``P`` is the chunk's max pooling length rounded up to a power of two
     (few distinct shapes across chunks); absent/padded positions get index 0
     with ``valid=False`` -- the device step routes them to the zero sentinel
-    row so they contribute nothing and cost no IO. A numpy pass on the host,
-    as the reference's.
+    row so they contribute nothing and cost no IO.
+
+    One vectorized numpy pass on the host over the parent trace's own CSR
+    arrays, with no loop over tables: the chunk's queries own one
+    contiguous range of segments and one of keys. The keys are laid out
+    segment-major in an ``[S, P]`` block, each bag a prefix of its row in
+    CSR order (one boolean-mask store), and the rows are then scattered to
+    their ``query * T + slot`` rows of the block. Segments of one query
+    carry distinct table ids, so no two land on one row. A table id that
+    ``table_slot`` lacks raises ``KeyError``, a slot outside
+    ``[0, num_tables)`` ``IndexError``. Equal bit for bit to the
+    reference's per-table loop.
     """
-    B = chunk.n_queries
-    views = chunk.table_views()
-    P = 1
-    for v in views:
-        if len(v.lens):
-            P = max(P, int(v.lens.max()))
-    P = 1 << (P - 1).bit_length()
-    idx = np.zeros((B, num_tables, P), np.int32)
-    valid = np.zeros((B, num_tables, P), bool)
-    for v in views:
-        t = table_slot[v.tid]
-        nseg = len(v.qid)
-        if nseg == 0 or not len(v.vals):
-            continue
-        seg = np.repeat(np.arange(nseg, dtype=np.int64), v.lens)
-        pos = (np.arange(len(v.vals), dtype=np.int64)
-               - np.repeat(v.eoff[:-1], v.lens))
-        b = v.qid[seg]
-        idx[b, t, pos] = v.vals
-        valid[b, t, pos] = True
-    return idx, valid
+    p, qs, B = chunk.parent, chunk.start, chunk.n_queries
+    qseg = p.query_seg[qs:qs + B + 1]
+    s0, s1 = int(qseg[0]), int(qseg[-1])
+    soff = p.seg_offsets[s0:s1 + 1]
+    lens = np.diff(soff)
+    P = 1 << (int(lens.max(initial=1)) - 1).bit_length()
+    # table id -> slot for every segment: one searchsorted over sorted ids
+    tids = p.seg_table[s0:s1]
+    ids = np.fromiter(table_slot, np.int64, len(table_slot))
+    slots = np.fromiter(table_slot.values(), np.int64, len(table_slot))
+    order = np.argsort(ids)
+    ids, slots = ids[order], slots[order]
+    at = np.searchsorted(ids, tids)
+    found = at < len(ids)
+    found[found] = ids[at[found]] == tids[found]
+    if not found.all():
+        raise KeyError(int(tids[~found].min()))
+    seg_slot = slots[at]
+    if len(seg_slot) and not 0 <= seg_slot.min() <= seg_slot.max() < num_tables:
+        raise IndexError(f"table slot out of range [0, {num_tables})")
+    row = (np.repeat(np.arange(B, dtype=np.int64), np.diff(qseg)) * num_tables
+           + seg_slot)
+    seg_valid = np.arange(P, dtype=np.int32) < lens.astype(np.int32)[:, None]
+    seg_idx = np.zeros((len(lens), P), np.int32)
+    seg_idx[seg_valid] = p.values[int(soff[0]):int(soff[-1])]
+    idx = np.zeros((B * num_tables, P), np.int32)
+    valid = np.zeros((B * num_tables, P), bool)
+    idx[row] = seg_idx
+    valid[row] = seg_valid
+    return (idx.reshape(B, num_tables, P),
+            valid.reshape(B, num_tables, P))
 
 
 @dataclasses.dataclass

@@ -271,6 +271,158 @@ def test_dense_from_chunk_matches_reference(name):
     assert Ps == ({64} if name == "zipf_steady" else {128})
 
 
+def _fixed_pool_requests(rng, queries, tids, pool, rows=50):
+    """Every query touches every table of ``tids`` (in that order) with the
+    table's own fixed pooling ``pool[i]``, rows below ``rows``."""
+    return [{int(t): rng.integers(0, rows, int(pool[i]))
+             for i, t in enumerate(tids)} for _ in range(queries)]
+
+
+def _ragged_requests(rng, queries, tids, max_len):
+    """Each query touches a random subset of ``tids`` in random order, with
+    bags of 0 to ``max_len`` keys."""
+    out = []
+    for _ in range(queries):
+        pick = rng.permutation(tids)[:int(rng.integers(1, len(tids) + 1))]
+        out.append({int(t): rng.integers(0, 1000, int(rng.integers(0, max_len + 1)))
+                    for t in pick})
+    return out
+
+
+def _densify_case(case):
+    """(requests, [(qs, qe, csize)] chunks to densify, table_slot, the P
+    every chunk must pad to, or None where it follows the drawn bags)."""
+    rng = np.random.default_rng(31)
+    if case == "m1_shape":
+        # the paper's M1: 61 tables, a fixed pooling a table, 32 queries
+        tids = np.arange(61) * 3 + 7
+        pool = rng.integers(1, 65, 61)
+        pool[5] = 64
+        reqs = _fixed_pool_requests(rng, 32, tids, pool)
+        return reqs, [(0, 32, 32)], {int(t): i for i, t in enumerate(tids)}, 64
+    tids = np.array([2, 9, 4, 11, 30])
+    slots = {int(t): i for i, t in enumerate(tids)}
+    if case == "strided":
+        reqs = _ragged_requests(rng, 100, tids, 20)
+        return reqs, [(q, min(q + 16, 100), 16) for q in range(0, 100, 16)], slots, None
+    if case == "adhoc":
+        reqs = _ragged_requests(rng, 60, tids, 20)
+        return reqs, [(7, 29, None), (0, 60, None), (59, 60, None)], slots, None
+    if case == "ragged_empty":
+        reqs = _ragged_requests(rng, 24, tids, 5)
+        reqs[3] = {9: np.zeros(0, np.int64), 30: np.array([4, 4, 1])}
+        reqs[4] = {11: np.zeros(0, np.int64)}
+        return reqs, [(0, 8, 8), (8, 16, 8), (16, 24, 8)], slots, None
+    if case in ("pow2", "pow2_plus_one"):
+        top = 64 if case == "pow2" else 65
+        reqs = _fixed_pool_requests(rng, 6, tids, [3, top, 17, 1, 40])
+        return reqs, [(0, 6, None)], slots, 64 if case == "pow2" else 128
+    if case == "all_empty":
+        reqs = [{2: np.zeros(0, np.int64)}, {4: np.zeros(0, np.int64), 9: np.zeros(0, np.int64)}]
+        return reqs, [(0, 2, None)], slots, 1
+    if case == "slots_out_of_order":
+        reqs = _ragged_requests(rng, 20, tids, 12)
+        # slots not in table-id order, and tables no query touches
+        ids = [30, 500, 4, 2, 77, 11, 9]
+        return (reqs, [(0, 10, 10), (10, 20, 10)],
+                {t: s for t, s in zip(ids, [6, 0, 3, 5, 1, 2, 4])}, None)
+    raise ValueError(case)
+
+
+DENSIFY_CASES = ["m1_shape", "strided", "adhoc", "ragged_empty", "pow2",
+                 "pow2_plus_one", "all_empty", "slots_out_of_order"]
+
+
+@pytest.mark.parametrize("case", DENSIFY_CASES)
+def test_dense_from_chunk_cases_match_reference(case):
+    """The vectorized pass equals the reference's per-table loop bit for
+    bit: block shape and dtype, every index and the valid mask."""
+    reqs, ranges, slots, want_p = _densify_case(case)
+    tq, jq = TColumnar.from_requests(reqs), JColumnar.from_requests(reqs)
+    T = max(slots.values()) + 1
+    for qs, qe, csize in ranges:
+        idx, valid = teng.dense_from_chunk(tq.chunk(qs, qe, csize), slots, T)
+        jidx, jvalid = jeng.dense_from_chunk(jq.chunk(qs, qe, csize), slots, T)
+        longest = max([len(v) for r in reqs[qs:qe] for v in r.values()] + [1])
+        P = 1 << (longest - 1).bit_length()
+        assert want_p in (None, P)
+        assert idx.shape == jidx.shape == (qe - qs, T, P)
+        assert idx.dtype == jidx.dtype == np.int32
+        assert valid.dtype == jvalid.dtype == np.bool_
+        np.testing.assert_array_equal(idx, jidx)
+        np.testing.assert_array_equal(valid, jvalid)
+        assert not idx[~valid].any()               # padded slots hold row 0
+        keys = sum(len(v) for r in reqs[qs:qe] for v in r.values())
+        assert int(valid.sum()) == keys
+
+
+@pytest.mark.parametrize("missing", ["touched", "empty_bag", "other_chunk"])
+def test_dense_from_chunk_missing_table(missing):
+    """A table id of the chunk that ``table_slot`` lacks raises ``KeyError``
+    in both packages, also where its bags are empty; one only another chunk
+    of the trace touches does not."""
+    reqs = [{1: np.array([3, 4]), 2: np.array([5])},
+            {2: np.array([6, 7, 8])},
+            {8: np.array([1])}]
+    if missing == "empty_bag":
+        reqs[1][5] = np.zeros(0, np.int64)
+    slots = {1: 0, 2: 1}
+    tq, jq = TColumnar.from_requests(reqs), JColumnar.from_requests(reqs)
+    if missing == "other_chunk":
+        idx, valid = teng.dense_from_chunk(tq.chunk(0, 2, 2), slots, 2)
+        jidx, jvalid = jeng.dense_from_chunk(jq.chunk(0, 2, 2), slots, 2)
+        np.testing.assert_array_equal(idx, jidx)
+        np.testing.assert_array_equal(valid, jvalid)
+        return
+    want = 8 if missing == "touched" else 5
+    for eng, q in ((teng, tq), (jeng, jq)):
+        with pytest.raises(KeyError) as e:
+            eng.dense_from_chunk(q.whole(), slots, 2)
+        assert e.value.args == (want,)
+
+
+def test_dense_from_chunk_slot_out_of_range():
+    """A slot at or past ``num_tables`` raises ``IndexError`` in both
+    packages, never a key written into another query's rows."""
+    reqs = [{1: np.array([3]), 2: np.array([5, 6])}, {1: np.array([4])}]
+    for eng, cq in ((teng, TColumnar), (jeng, JColumnar)):
+        with pytest.raises(IndexError):
+            eng.dense_from_chunk(cq.from_requests(reqs).whole(), {1: 0, 2: 2}, 2)
+
+
+def test_densify_reads_no_table_views(monkeypatch):
+    """``dense_from_chunk`` and ``serve_columnar`` read the CSR arrays only:
+    with ``ColumnarChunk.table_views`` made to raise, both return what they
+    return without the patch."""
+    from repro_torch.core.columnar import ColumnarChunk
+    tt, _, tables = _trace_pair("zipf_steady", 24)
+    chunks = [tc.columnar for tc in tt.chunks(8)]
+    cfg = teng.EngineConfig(hbm_cache_bytes=1 << 14, use_kernels=False)
+
+    def run():
+        eng = teng.DeviceServingEngine(tables, tio.DEVICES["optane_ssd"], cfg,
+                                       torch_device="cpu")
+        blocks = [teng.dense_from_chunk(c, eng.table_slot, len(tables))
+                  for c in chunks]
+        served = [eng.serve_columnar(c, bg_iops=5e4) for c in chunks]
+        return blocks, served
+
+    want_blocks, want_served = run()
+
+    def refuse(self, with_hashes=False):
+        raise AssertionError("densify read the table views")
+
+    monkeypatch.setattr(ColumnarChunk, "table_views", refuse)
+    got_blocks, got_served = run()
+    for (i, v), (wi, wv) in zip(got_blocks, want_blocks):
+        np.testing.assert_array_equal(i, wi)
+        np.testing.assert_array_equal(v, wv)
+    for got, want in zip(got_served, want_served):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
 def test_valid_mask_and_columnar_entry():
     """As ``tests/test_engine.py``: padded positions pool nothing, cost no IO
     and never perturb the cache; ``serve_columnar`` round-trips through
