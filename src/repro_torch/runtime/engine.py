@@ -17,6 +17,14 @@ The pooled output is the hit-side pool plus the miss-side pool. Only the
 ``[B, T]`` miss counts and the pooled block come back to the host, where the
 analytic ``IOEngine`` prices each query's IO under Eq. 3.
 
+The store and the cache hold each row at a pitch (``row_pitch``): ``dim``
+rounded up to a multiple of ``ROW_ALIGN`` elements, so both kernels move
+rows in wide vectors whatever ``dim`` is (an odd ``dim`` would drop them to
+single bytes and floats). The pad columns are zero in the store and the
+cache; the pools drop them, so every result is ``dim`` wide, each column
+summed in the same order as at ``dim``. The cache is sized and the SM priced
+by ``row_bytes(dim)``, never by the pitch.
+
 ``serve_columnar`` is the trace plane's entry: a columnar (CSR) chunk of a
 workload trace is densified on the host (``dense_from_chunk``, one
 vectorized pass over the trace's CSR arrays, no loop over tables) into a
@@ -28,8 +36,10 @@ the clock of ``torch.profiler``'s device records: ``engine.serve`` >
 ``engine.densify``, ``engine.validate``, ``engine.h2d``, ``engine.step``
 (> ``step.probe``, ``step.hit_pool``, ``step.miss_pool``, ``step.dedupe``,
 ``step.fill``), ``engine.d2h``, ``engine.account``; and the counters
-``engine.slots`` (B*T*P) and ``engine.valid_keys``. Without it the
-engine reads no clock.
+``engine.slots`` (B*T*P) and ``engine.valid_keys``; it sets the gauges
+``engine.dim`` and ``engine.row_pitch`` (which launch plans ran) once on
+each registry it serves into. Without it the engine reads no clock, and
+its registry holds what the reference's does.
 """
 from __future__ import annotations
 
@@ -47,6 +57,59 @@ from repro_torch.core.quant import quantize_rows, row_bytes
 from repro_torch.core.sdm import QueryStats
 from repro_torch.kernels import ops
 from repro_torch.obs.tracing import WallSpans
+
+ROW_ALIGN = 4        # elements: stored rows of a multiple of 4 bytes, cached (f32) of 16
+QUANT_BLOCK_ROWS = 1 << 20   # rows quantized at once: bounds set-up's f32 temporaries
+
+
+def row_pitch(dim: int) -> int:
+    """Elements a stored or cached row occupies: ``dim`` rounded up to a
+    multiple of ``ROW_ALIGN``."""
+    return -(-dim // ROW_ALIGN) * ROW_ALIGN
+
+
+def new_store(rows: int, dim: int, device
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A zeroed quantized store of ``rows`` rows at ``row_pitch(dim)``:
+    ``(payload [rows, pitch] uint8, scale [rows] f32, bias [rows] f32)``."""
+    return (torch.zeros((rows, row_pitch(dim)), dtype=torch.uint8,
+                        device=device),
+            torch.zeros(rows, dtype=torch.float32, device=device),
+            torch.zeros(rows, dtype=torch.float32, device=device))
+
+
+def quantize_into(store: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                  table: torch.Tensor, lo: int, hi: int, dst: int) -> None:
+    """Quantize rows ``[lo, hi)`` of ``table`` into ``store`` (``new_store``'s)
+    from row ``dst`` on, ``QUANT_BLOCK_ROWS`` rows at a time. Quantization is
+    row-wise, so the rows are those of the whole table quantized at once;
+    the pad columns stay zero."""
+    payload, scale, bias = store
+    dim = table.shape[1]
+    for a in range(lo, hi, QUANT_BLOCK_ROWS):
+        b = min(a + QUANT_BLOCK_ROWS, hi)
+        q = quantize_rows(table[a:b])
+        rows = slice(dst + a - lo, dst + b - lo)
+        payload[rows, :dim] = q["payload"]
+        scale[rows] = q["scale"]
+        bias[rows] = q["bias"]
+
+
+def fill_rows(store: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+              rows: torch.Tensor, dim: int) -> torch.Tensor:
+    """The cache's f32 rows, at the pitch, for ``rows`` of ``store``. The
+    reference's compiled step contracts q * scale + bias into one fused
+    multiply-add; an 8-bit integer times a float32 is exact in float64, so
+    the float64 sum rounds once to the same float32 (exactly so unless bias
+    and product differ in magnitude by more than 2**21). The pad columns,
+    which would dequantize to the bias, are zero."""
+    payload, scale, bias = store
+    deq = (payload[rows].to(torch.float64)
+           * scale[rows].to(torch.float64)[:, None]
+           + bias[rows].to(torch.float64)[:, None]).to(torch.float32)
+    if deq.shape[1] != dim:
+        deq[:, dim:] = 0.0
+    return deq
 
 
 def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
@@ -136,21 +199,21 @@ class DeviceServingEngine:
         self.rows_per_table = np.array([tables[t].shape[0]
                                         for t in self.table_ids], np.int64)
 
-        # quantize and stack into one backing store + zero sentinel row
-        qts = [quantize_rows(torch.as_tensor(tables[t], device=dev).detach())
-               for t in self.table_ids]
-        self.payload = torch.cat([q["payload"] for q in qts]
-                                 + [qts[0]["payload"].new_zeros((1, self.dim))])
-        zero = torch.zeros(1, dtype=torch.float32, device=dev)
-        self.scale = torch.cat([q["scale"] for q in qts] + [zero])
-        self.bias = torch.cat([q["bias"] for q in qts] + [zero])
-        self.sentinel = int(self.payload.shape[0]) - 1          # the zero row
-        self.offsets = torch.as_tensor(
-            np.r_[0, np.cumsum(self.rows_per_table)[:-1]], dtype=torch.int64,
-            device=dev)
+        self.pitch = row_pitch(self.dim)
+
+        # one backing store at the pitch, the tables in slot order, then the
+        # zero sentinel row
+        first = np.r_[0, np.cumsum(self.rows_per_table)[:-1]]
+        self.sentinel = R = int(self.rows_per_table.sum())      # the zero row
+        store = new_store(R + 1, self.dim, dev)
+        for t, lo in zip(self.table_ids, first.tolist()):
+            table = torch.as_tensor(tables[t], device=dev).detach()
+            quantize_into(store, table, 0, table.shape[0], lo)
+        self.payload, self.scale, self.bias = store
+        self.offsets = torch.as_tensor(first, dtype=torch.int64, device=dev)
 
         self.row_bytes = row_bytes(self.dim, bits=8)
-        geo = dual_cache_geometry(cfg.hbm_cache_bytes, dim=self.dim,
+        geo = dual_cache_geometry(cfg.hbm_cache_bytes, dim=self.pitch,
                                   row_payload_bytes=self.row_bytes,
                                   ways=cfg.ways)
         self.cache = TorchRowCache(geo, device=dev)
@@ -159,6 +222,7 @@ class DeviceServingEngine:
         self.stats = QueryStats()        # store-level totals, host-plane shape
         self.telemetry = None            # obs handle; None = bit-invisible
         self._wall_calls = 0             # calls served with wall spans on
+        self._gauged = None              # the registry given the width gauges
         self.table_slot = {t: i for i, t in enumerate(self.table_ids)}
 
     # -- device step ----------------------------------------------------------
@@ -168,6 +232,10 @@ class DeviceServingEngine:
         tel = self.telemetry
         if tel is None or tel.wall is None:
             return None
+        if tel.registry is not self._gauged:     # once a registry: fixed widths
+            tel.registry.gauge("engine.dim", self.dim)
+            tel.registry.gauge("engine.row_pitch", self.pitch)
+            self._gauged = tel.registry
         self._wall_calls += 1
         return WallSpans(tel.wall, self._wall_calls)
 
@@ -175,9 +243,9 @@ class DeviceServingEngine:
               ws: Optional[WallSpans] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """idx [B, T, P] int32, valid [B, T, P] bool, both on the device ->
-        (pooled [B, T, D] f32, deduped miss counts [B, T]). The cache is
+        (pooled [B, T, dim] f32, deduped miss counts [B, T]). The cache is
         keyed by table slot (0..T-1), not table id."""
-        cache, use_kernels = self.cache, self.cfg.use_kernels
+        cache, use_kernels, D = self.cache, self.cfg.use_kernels, self.dim
         B, T, P = idx.shape
         if ws is not None:
             ws.open("engine.step")
@@ -192,8 +260,8 @@ class DeviceServingEngine:
                                            use_kernel=use_kernels, valid=vq)
         if ws is not None:
             ws.lap("step.probe")
-        # hit-side pool straight from HBM cache data
-        pooled_hit = (vals * hit[:, None]).reshape(B, T, P, -1).sum(dim=2)
+        # hit-side pool straight from HBM cache data, less the pad columns
+        pooled_hit = (vals * hit[:, None]).reshape(B, T, P, -1).sum(dim=2)[..., :D]
         if ws is not None:
             ws.lap("step.hit_pool")
         # miss-side pool fused over the quantized backing store; hits and
@@ -203,7 +271,7 @@ class DeviceServingEngine:
         pooled_miss = ops.embedding_gather_pool(
             self.payload, self.scale, self.bias,
             gidx.reshape(B * T, P).to(torch.int32),
-            use_kernel=use_kernels).reshape(B, T, -1)
+            use_kernel=use_kernels).reshape(B, T, -1)[..., :D]
         if ws is not None:
             ws.lap("step.miss_pool")
         # unique-miss coalescing: group equal global rows with a stable sort;
@@ -220,14 +288,8 @@ class DeviceServingEngine:
         if ws is not None:
             ws.lap("step.dedupe")
         # fill: dequantize the fetched rows and insert them; duplicates are
-        # masked out so one key fills one way. The reference's compiled step
-        # contracts q * scale + bias into one fused multiply-add; an 8-bit
-        # integer times a float32 is exact in float64, so the float64 sum
-        # rounds once to the same float32 (exactly so unless bias and
-        # product differ in magnitude by more than 2**21)
-        deq = (self.payload[grow].to(torch.float64)
-               * self.scale[grow].to(torch.float64)[:, None]
-               + self.bias[grow].to(torch.float64)[:, None]).to(torch.float32)
+        # masked out so one key fills one way
+        deq = fill_rows((self.payload, self.scale, self.bias), grow, D)
         cache.insert(self.state, tq, rq, deq, mask=io_mask)
         if ws is not None:
             ws.lap("step.fill")
@@ -345,7 +407,7 @@ class DeviceServingEngine:
                * self.scale[grow][..., None] + self.bias[grow][..., None])
         if valid is not None:
             deq = deq * valid[..., None]
-        return deq.sum(dim=2).cpu().numpy()
+        return deq.sum(dim=2)[..., :self.dim].cpu().numpy()
 
     # -- reporting ------------------------------------------------------------
 

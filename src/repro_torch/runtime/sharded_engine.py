@@ -17,8 +17,9 @@ the fill. Foreign and padded keys are probed as the cache's NULL key (never
 hit, never counted) and point at the shard's zero sentinel row (pool
 nothing). Ownership partitions keys across shards, so the union of the
 shards' first-occurrence dedupes over global row ids is the single-device
-dedupe. Tables are quantized whole before slicing, so the store is
-bit-equal to the single-device one.
+dedupe. The store is quantized as the single-device one is and holds its
+rows at the same pitch (``engine.row_pitch``), so it is bit-equal to it;
+the pools drop the pad columns.
 
 One process drives every shard (shard k on ``mesh.devices[k]``) and
 combines the partial pools on the first shard's device, as the reference's
@@ -40,21 +41,24 @@ import torch
 from repro_torch.core.cache import TorchRowCache, dual_cache_geometry
 from repro_torch.core.columnar import ColumnarChunk
 from repro_torch.core.io_sim import DeviceModel, IOEngine
-from repro_torch.core.quant import quantize_rows, row_bytes
+from repro_torch.core.quant import row_bytes
 from repro_torch.core.sdm import QueryStats
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import EmbedMesh, make_embed_mesh
 from repro_torch.launch.sharding import check_layout
-from repro_torch.runtime.engine import EngineConfig, dense_from_chunk
+from repro_torch.runtime.engine import (EngineConfig, dense_from_chunk,
+                                        fill_rows, new_store, quantize_into,
+                                        row_pitch)
 
 
 class ShardedServingEngine:
     """Batched serving over a shard mesh; ``serve_batch`` and
     ``serve_columnar`` take and return what ``DeviceServingEngine``'s do.
 
-    Per shard k: ``payload[k]`` [L+1, D] uint8, ``scale[k]`` and ``bias[k]``
-    [L+1] f32 (row L is the zero sentinel), ``caches[k]`` and its state
-    ``state[k]``, all on ``mesh.devices[k]``. ``mesh`` defaults to
+    Per shard k: ``payload[k]`` [L+1, pitch] uint8, ``scale[k]`` and
+    ``bias[k]`` [L+1] f32 (row L is the zero sentinel), ``caches[k]`` and its
+    state ``state[k]`` (rows at the pitch, as ``DeviceServingEngine``'s), all
+    on ``mesh.devices[k]``. ``mesh`` defaults to
     ``make_embed_mesh()``: one shard per card."""
 
     def __init__(self, tables: Dict[int, object], device: DeviceModel,
@@ -121,23 +125,19 @@ class ShardedServingEngine:
         self.local_offsets = loff
         self.sentinel = L
 
-        # quantize each whole table once (bit-identical to the single-device
-        # store) on the first shard's device, then copy its slices into the
-        # shards' stores: no second whole copy of the store is made
-        self.payload = [torch.zeros((L + 1, self.dim), dtype=torch.uint8,
-                                    device=d) for d in self.devices]
-        self.scale = [torch.zeros(L + 1, dtype=torch.float32, device=d)
-                      for d in self.devices]
-        self.bias = [torch.zeros(L + 1, dtype=torch.float32, device=d)
-                     for d in self.devices]
+        # quantize each table's slices straight into the shards' stores at
+        # the pitch, on the first shard's device (``quantize_into``: the
+        # rows of the whole table, bit-identical to the single-device
+        # store): no second whole copy of the store is made
+        self.pitch = row_pitch(self.dim)
+        stores = [new_store(L + 1, self.dim, d) for d in self.devices]
         for ti, t in enumerate(self.table_ids):
-            q = quantize_rows(torch.as_tensor(tables[t], device=self.devices[0])
-                              .detach())
+            table = torch.as_tensor(tables[t], device=self.devices[0]).detach()
             for k, lo, hi, dst in pieces[ti]:
-                self.payload[k][dst:dst + hi - lo] = q["payload"][lo:hi]
-                self.scale[k][dst:dst + hi - lo] = q["scale"][lo:hi]
-                self.bias[k][dst:dst + hi - lo] = q["bias"][lo:hi]
-            del q
+                quantize_into(stores[k], table, lo, hi, dst)
+        self.payload = [p for p, _, _ in stores]
+        self.scale = [s for _, s, _ in stores]
+        self.bias = [b for _, _, b in stores]
 
         # the step's per-table constants, on each shard's device
         def on(dev, a, dtype):
@@ -152,7 +152,7 @@ class ShardedServingEngine:
         } for d in self.devices]
 
         self.row_bytes = row_bytes(self.dim, bits=8)
-        geo = dual_cache_geometry(cfg.hbm_cache_bytes, dim=self.dim,
+        geo = dual_cache_geometry(cfg.hbm_cache_bytes, dim=self.pitch,
                                   row_payload_bytes=self.row_bytes,
                                   ways=cfg.ways)
         self.caches = [TorchRowCache(geo, device=d) for d in self.devices]
@@ -170,7 +170,7 @@ class ShardedServingEngine:
         [B, T, D] f32 of the shard's keys, its deduped miss counts [B, T])."""
         c, cache, state = self._consts[k], self.caches[k], self.state[k]
         payload, scale, bias = self.payload[k], self.scale[k], self.bias[k]
-        use_kernels = self.cfg.use_kernels
+        use_kernels, D = self.cfg.use_kernels, self.dim
         B, T, P = idx.shape
         tids = torch.arange(T, dtype=torch.int32, device=idx.device
                             ).view(1, T, 1).expand(B, T, P)
@@ -187,12 +187,12 @@ class ShardedServingEngine:
         tq, rq = tids.reshape(-1), idx.reshape(-1)
         vals, hit, _ = cache.lookup_device(state, tq, rq,
                                            use_kernel=use_kernels, valid=v)
-        pooled_hit = (vals * hit[:, None]).reshape(B, T, P, -1).sum(dim=2)
+        pooled_hit = (vals * hit[:, None]).reshape(B, T, P, -1).sum(dim=2)[..., :D]
         lr = lrow.reshape(-1)
         gidx = torch.where(hit | ~v, self.sentinel, lr)
         pooled_miss = ops.embedding_gather_pool(
             payload, scale, bias, gidx.reshape(B * T, P).to(torch.int32),
-            use_kernel=use_kernels).reshape(B, T, -1)
+            use_kernel=use_kernels).reshape(B, T, -1)[..., :D]
         # unique-miss dedupe over *global* row ids: ownership partitions
         # keys, so the shards' dedupes union to the single-device dedupe
         miss = v & ~hit
@@ -206,13 +206,11 @@ class ShardedServingEngine:
         first[order] = head
         io_mask = miss & first
         # fill, rounded once as the reference's fused multiply-add
-        # (``DeviceServingEngine._step``). A foreign key of the table layout
-        # may point past this shard's rows (the reference's gather clamps
-        # it); it is never inserted, so it reads the sentinel here
+        # (``engine.fill_rows``). A foreign key of the table layout may point
+        # past this shard's rows (the reference's gather clamps it); it is
+        # never inserted, so it reads the sentinel here
         fr = torch.where(v, lr, self.sentinel)
-        deq = (payload[fr].to(torch.float64)
-               * scale[fr].to(torch.float64)[:, None]
-               + bias[fr].to(torch.float64)[:, None]).to(torch.float32)
+        deq = fill_rows((payload, scale, bias), fr, D)
         cache.insert(state, tq, rq, deq, mask=io_mask)
         return pooled_hit + pooled_miss, io_mask.reshape(B, T, P).sum(dim=2)
 
@@ -325,7 +323,7 @@ class ShardedServingEngine:
         for k, d in enumerate(self.devices):
             sel = torch.from_numpy(valid & (owner == k))
             rows = torch.from_numpy(lr[valid & (owner == k)]).to(d)
-            deq[sel.to(dev)] = (self.payload[k][rows].to(torch.float32)
+            deq[sel.to(dev)] = (self.payload[k][rows, :self.dim].to(torch.float32)
                                 * self.scale[k][rows][:, None]
                                 + self.bias[k][rows][:, None]).to(dev)
         return deq.sum(dim=2).cpu().numpy()

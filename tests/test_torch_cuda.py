@@ -12,6 +12,7 @@ from repro_torch import serve_lm
 from repro_torch.configs import get_config
 from repro_torch.core.io_sim import DEVICES
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import cache_probe as cp_module
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import gather_pool as gp_module
 from repro_torch.kernels.cache_probe import cache_probe
@@ -87,7 +88,7 @@ def _in_order(payload, scale, bias, idx):
     return acc
 
 
-@pytest.mark.parametrize("D", [1, 3, 16, 24, 64, 96, 128, 164])
+@pytest.mark.parametrize("D", [1, 3, 16, 24, 64, 96, 128, 164, 279, 280])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
 @pytest.mark.parametrize("P", [0, 1, 8, 33, 42])
 def test_gather_pool_kernel_is_the_in_order_sum(cuda, D, dtype, P):
@@ -166,6 +167,50 @@ def test_cache_probe_kernel_sums_two_matching_ways(cuda):
     vals, hit = _probe_matches_plain((tt, tr, data, q, r, sets))
     assert hit.tolist() == [1, 0, 1]
     assert torch.equal(vals[0], data[2, 1] + data[2, 3]) and not vals[1].any()
+
+
+@pytest.mark.parametrize("D,gather_vec,probe_vec", [(279, 1, 1), (280, 8, 4)])
+def test_kernels_at_m2_widths_bit_for_bit(cuda, D, gather_vec, probe_vec):
+    """M2's 279 values a row and its pitch, 280: ``gather_pool`` (a bag of
+    M2's pooling) and ``cache_probe`` (8 ways) at their launch plans, each
+    equal bit for bit to its plain version in the kernel's order."""
+    args = _gather_args(cuda, 4000, D, 450, 25, torch.uint8, D)
+    assert gp_module.launch_plan(D, 1, args[0].data_ptr(), 450, 25).vec == gather_vec
+    assert torch.equal(gather_pool(*args), _in_order(*args))
+    pargs = _probe_args(cuda, 512, 8, D, 4096, D)
+    assert cp_module.launch_plan(8, D, 4096, pargs[2].data_ptr()).vec == probe_vec
+    vals, hit = cache_probe(*pargs)
+    vals_ref, hit_ref = ref.cache_probe_ref(*pargs)
+    assert torch.equal(hit, hit_ref) and 0 < int(hit.sum()) < 4096
+    assert torch.equal(vals, vals_ref)
+
+
+def test_engine_at_odd_dim_on_card_matches_cpu(cuda):
+    """At M2's 279 values a row the engine on the card (rows at a pitch of
+    280) equals the same engine on the CPU: SM reads and latency, the cache
+    state, pooled bags within the columnar tolerance."""
+    rng = np.random.default_rng(5)
+    tables = {t: rng.standard_normal((300, 279)).astype(np.float32)
+              for t in range(3)}
+    cfg = EngineConfig(hbm_cache_bytes=12 * 8 * 327)
+    card = DeviceServingEngine(tables, DEVICES["nand_flash"], cfg, torch_device=cuda)
+    host = DeviceServingEngine(tables, DEVICES["nand_flash"], cfg, torch_device="cpu")
+    assert card.pitch == 280 and card.cache.geo.num_sets == 12
+    ops.reset_launch_counts()
+    for _ in range(3):
+        idx = rng.integers(0, 300, (8, 3, 8)).astype(np.int32)
+        valid = rng.random(idx.shape) < 0.9
+        pc, sc = card.serve_batch(idx, 1e4, valid=valid)
+        ph, sh = host.serve_batch(idx, 1e4, valid=valid)
+        assert pc.shape == (8, 3, 279)
+        assert [s.sm_ios for s in sc] == [s.sm_ios for s in sh]
+        assert [s.latency_us for s in sc] == [s.latency_us for s in sh]
+        np.testing.assert_allclose(pc, ph, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(pc, card.reference_pool(idx, valid), rtol=1e-5, atol=1e-5)
+    counts = ops.launch_counts()
+    assert counts["gather_pool"] == counts["cache_probe"] == 3
+    for k, v in card.state.items():
+        assert torch.equal(v.cpu(), host.state[k]), k
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -309,20 +354,27 @@ def test_sharded_engine_kernels_match_plain_on_card(cuda, layout):
     engine launches each kernel once a shard a batch and equals the plain
     engine in ``sm_ios``, ``sm_time_us`` and each shard's cache state;
     pooled within the reference's columnar tolerance of each other and of
-    ``reference_pool``."""
+    ``reference_pool``. At M2's 279 values the shards hold rows at the
+    single-device engine's pitch, 280."""
+    for dim, pitch in ((32, 32), (279, 280)):
+        _sharded_on_card_case(cuda, layout, dim, pitch)
+
+
+def _sharded_on_card_case(cuda, layout, dim, pitch):
     spec = ARCHETYPES["zipf_steady"]
     spec = dataclasses.replace(spec, num_queries=48, tenants=tuple(
         dataclasses.replace(t, table_bytes=3e5, num_user_tables=3,
                             num_item_tables=1) for t in spec.tenants))
     trace = build_trace(spec)
     rng = np.random.default_rng(5)
-    tables = {m.table_id: rng.standard_normal((m.num_rows, 32)).astype(np.float32)
+    tables = {m.table_id: rng.standard_normal((m.num_rows, dim)).astype(np.float32)
               for m in trace.all_metas() if m.kind == "user"}
     mesh = make_embed_mesh(devices=[cuda] * 4)
     kern, plain = (ShardedServingEngine(
         tables, DEVICES["nand_flash"],
         EngineConfig(hbm_cache_bytes=1 << 14, use_kernels=use), mesh=mesh,
         layout=layout) for use in (True, False))
+    assert kern.pitch == pitch and kern.payload[0].shape[1] == pitch
     ops.reset_launch_counts()
     chunks = list(trace.chunks(16))
     for ch in chunks:

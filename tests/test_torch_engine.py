@@ -20,6 +20,7 @@ from repro.workloads import build_trace as jbuild
 from repro_torch import serve_dlrm
 from repro_torch.core import io_sim as tio
 from repro_torch.core.columnar import ColumnarQueries as TColumnar
+from repro_torch.core.quant import quantize_rows, row_bytes
 from repro_torch.kernels import ops
 from repro_torch.runtime import engine as teng
 from repro_torch.workloads import ARCHETYPES as TARCH
@@ -38,11 +39,18 @@ def _engines(tables, device="nand_flash", **cfg):
 
 
 def _assert_state_equal(js, ts):
+    """Every state tensor equal; the port's cached rows are compared over the
+    reference's ``dim`` columns, and the pad columns past it (the pitch)
+    must be zero."""
     assert set(js) == set(ts)
     for k in js:
         want = np.asarray(js[k])
-        assert ts[k].numpy().dtype == want.dtype, k
-        np.testing.assert_array_equal(ts[k].numpy(), want, err_msg=k)
+        got = ts[k].numpy()
+        if k == "data":
+            assert not got[..., want.shape[-1]:].any()
+            got = got[..., :want.shape[-1]]
+        assert got.dtype == want.dtype, k
+        np.testing.assert_array_equal(got, want, err_msg=k)
 
 
 def _serve_both(j, t, idx, bg_iops=1e4, valid=None):
@@ -83,6 +91,72 @@ def test_three_batches_match_reference(use_kernels):
     assert ops.launch_counts() == {"gather_pool": 0, "cache_probe": 0,
                                    "flash_decode": 0}
     assert 0.0 < t.hit_rate < 1.0
+
+
+@pytest.mark.parametrize("dim,use_kernels", [(13, True), (13, False), (279, False)])
+def test_odd_dim_matches_reference(dim, use_kernels):
+    """A row width that is not a multiple of 4 (M2's 279: 287 B rows, above
+    255 B, so the 40 B-metadata cache): the port stores and caches rows at
+    a pitch of 16 or 280 and returns ``dim`` columns. Pooled bags within the
+    tolerance, the cache's first ``dim`` columns, tags, stamps and counters,
+    ``sm_ios`` and Eq. 3 latency exactly the reference's."""
+    rng = np.random.default_rng(dim)
+    rows = (300, 200, 250)
+    tables = {t: rng.standard_normal((r, dim)).astype(np.float32)
+              for t, r in enumerate(rows)}
+    budget = 12 * 8 * (row_bytes(dim) + (40 if dim > 247 else 8))
+    j, t = _engines(tables, hbm_cache_bytes=budget, use_kernels=use_kernels)
+    assert (t.dim, t.pitch) == (dim, -(-dim // 4) * 4)
+    assert t.payload.shape == (sum(rows) + 1, t.pitch) and not t.payload[:, dim:].any()
+    assert t.cache.geo == t.cache.geo.__class__(12, 8, t.pitch)
+    assert j.cache.geo.num_sets == 12
+    hot = np.stack([rng.integers(0, 40, (6, 8)) for _ in rows], axis=1)
+    for rep in range(3):
+        idx = np.stack([rng.integers(0, r, (6, 8)) for r in rows], axis=1)
+        idx = np.where(rng.random(idx.shape) < 0.5, hot, idx).astype(np.int32)
+        valid = rng.random(idx.shape) < 0.9
+        pooled, _ = _serve_both(j, t, idx, bg_iops=1e4 * (rep + 1), valid=valid)
+        assert pooled.shape == (6, 3, dim)
+    assert 0.0 < t.hit_rate < 1.0
+
+
+@pytest.mark.parametrize("dim,pitch,gather_vec,probe_vec", [
+    (164, 164, 4, 4),        # M1: the pitch is dim, the plans are unchanged
+    (279, 280, 8, 4),        # M2: 1-byte and 1-float plans at dim
+    (13, 16, 16, 4), (24, 24, 8, 4)])
+def test_row_pitch_and_launch_plans(monkeypatch, dim, pitch, gather_vec, probe_vec):
+    """The store and the cache hold rows at ``row_pitch(dim)``, and the
+    kernels' launch plans follow it; at a multiple of 4 (M1's 164) the store
+    is the tables' quantized rows stacked, as before the pitch."""
+    from repro_torch.kernels import cache_probe as cp_module
+    from repro_torch.kernels import gather_pool as gp_module
+    rng = np.random.default_rng(dim)
+    tables = {5: rng.standard_normal((40, dim)).astype(np.float32),
+              2: rng.standard_normal((24, dim)).astype(np.float32)}
+    eng = teng.DeviceServingEngine(tables, tio.DEVICES["nand_flash"],
+                                   teng.EngineConfig(hbm_cache_bytes=1 << 16),
+                                   torch_device="cpu")
+    assert teng.row_pitch(dim) == eng.pitch == pitch
+    assert eng.payload.shape[1] == eng.state["data"].shape[2] == eng.cache.geo.dim == pitch
+    assert eng.row_bytes == dim + 8
+    qs = [quantize_rows(torch.as_tensor(tables[t])) for t in (5, 2)]
+    assert torch.equal(eng.payload[:-1, :dim], torch.cat([q["payload"] for q in qs]))
+    assert torch.equal(eng.scale[:-1], torch.cat([q["scale"] for q in qs]))
+    assert not eng.payload[-1].any() and eng.scale[-1] == 0 and eng.bias[-1] == 0
+    # quantized block by block of rows: the same store as whole tables
+    monkeypatch.setattr(teng, "QUANT_BLOCK_ROWS", 7)
+    blocked = teng.DeviceServingEngine(tables, tio.DEVICES["nand_flash"],
+                                       teng.EngineConfig(hbm_cache_bytes=1 << 16),
+                                       torch_device="cpu")
+    for a, b in ((blocked.payload, eng.payload), (blocked.scale, eng.scale),
+                 (blocked.bias, eng.bias)):
+        assert torch.equal(a, b)
+    plan = gp_module.launch_plan(eng.payload.shape[1], 1, 0, 32 * 450, 64)
+    assert plan.vec == gather_vec
+    assert cp_module.launch_plan(8, eng.state["data"].shape[2], 1 << 20).vec == probe_vec
+    if pitch != dim:        # what an unpadded store and cache would run
+        assert gp_module.launch_plan(dim, 1, 0, 32 * 450, 64).vec == 1
+        assert cp_module.launch_plan(8, dim, 1 << 20).vec == 1
 
 
 def test_valid_mask_with_out_of_range_garbage():

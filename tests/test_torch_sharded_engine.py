@@ -44,6 +44,7 @@ SRC = os.path.join(HERE, "..", "src")
 POOL_TOL = dict(rtol=1e-5, atol=1e-5)
 STATE_KEYS = ("tag_table", "tag_row", "data", "stamp", "clock", "hits", "misses")
 KERNEL_SHARDS = (2, 8)
+STORE_DIMS = (8, 13)              # 13: rows held at a pitch of 16
 SWEEP_SHARDS = (2, 4, 8)
 SWEEP_ARCHETYPES = ("zipf_steady", "bursty", "multi_tenant")
 
@@ -90,10 +91,21 @@ def _mismatches(j, t, jout, tout, idx, valid=None) -> list:
     for k in range(t.n):
         for key in STATE_KEYS:
             want = np.asarray(j.state[key])[k]
-            got = t.state[k][key].numpy()
-            if got.dtype != want.dtype or not np.array_equal(got, want):
+            got = _at_dim(t.state[k][key].numpy(), want, key == "data")
+            if got is None or got.dtype != want.dtype or \
+                    not np.array_equal(got, want):
                 bad.append(f"shard {k} {key}")
     return bad
+
+
+def _at_dim(got, want, rows):
+    """The port's ``got`` over the reference's columns when it holds
+    ``rows`` at the pitch, or None if a pad column past them is not zero."""
+    if not rows:
+        return got
+    if got[..., want.shape[-1]:].any():
+        return None
+    return got[..., :want.shape[-1]]
 
 
 def _small_spec(archetypes, name, queries):
@@ -125,8 +137,8 @@ def _parity_worker() -> dict:
     idx = np.stack([np.random.default_rng(1).integers(0, r, (4, 4))
                     for r in rows], axis=1).astype(np.int32)
 
-    def kernel_case(layout, n):
-        j, t = _pair(_tables(np.random.default_rng(0), rows), n, layout,
+    def kernel_case(layout, n, dim=8):
+        j, t = _pair(_tables(np.random.default_rng(0), rows, dim), n, layout,
                      hbm_cache_bytes=64 << 10, use_kernels=True)
         bad, ios = [], []
         for _ in range(2):
@@ -139,10 +151,11 @@ def _parity_worker() -> dict:
     for layout in EMBED_LAYOUTS:
         for n in KERNEL_SHARDS:
             run(f"kernel-{layout}-{n}", lambda: kernel_case(layout, n))
+        run(f"kernel-{layout}-2-13", lambda: kernel_case(layout, 2, 13))
 
     # the store's packing at 3 shards of uneven tables (one of one row)
-    def packing_case(layout):
-        j, t = _pair(_tables(np.random.default_rng(4), [7, 20, 1, 13]), 3,
+    def packing_case(layout, dim):
+        j, t = _pair(_tables(np.random.default_rng(4), [7, 20, 1, 13], dim), 3,
                      layout)
         bad = []
         if t.sentinel != j.sentinel or \
@@ -150,14 +163,17 @@ def _parity_worker() -> dict:
             bad.append("sentinel or local offsets")
         for k in range(3):
             for name in ("payload", "scale", "bias"):
-                got = getattr(t, name)[k].numpy()
                 want = np.asarray(getattr(j, name))[k]
-                if got.dtype != want.dtype or not np.array_equal(got, want):
+                got = _at_dim(getattr(t, name)[k].numpy(), want,
+                              name == "payload")
+                if got is None or got.dtype != want.dtype or \
+                        not np.array_equal(got, want):
                     bad.append(f"shard {k} {name}")
-        return {"bad": bad}
+        return {"bad": bad, "pitch": t.payload[0].shape[1]}
 
     for layout in EMBED_LAYOUTS:
-        run(f"packing-{layout}", lambda: packing_case(layout))
+        for dim in STORE_DIMS:
+            run(f"packing-{layout}-{dim}", lambda: packing_case(layout, dim))
 
     # the plain path over archetype traces through serve_columnar, with a
     # cache small enough to evict
@@ -213,10 +229,24 @@ def test_kernel_path_matches_reference(parity, layout, n):
 
 
 @pytest.mark.parametrize("layout", EMBED_LAYOUTS)
+def test_kernel_path_at_odd_dim_matches_reference(parity, layout):
+    """Two shards at 13 values a row (rows held at a pitch of 16): the
+    pooled bags, IO and each shard's cache state over the reference's 13
+    columns are the reference's, cold and then warm."""
+    res = parity[f"kernel-{layout}-2-13"]
+    assert res["bad"] == []
+    cold, warm = res["sm_ios"]
+    assert cold > 0 and warm == 0
+
+
+@pytest.mark.parametrize("layout", EMBED_LAYOUTS)
 def test_store_packing_matches_reference(parity, layout):
     """Each shard's slice of the quantized store, the local offsets and the
-    sentinel are the reference's, at 3 shards of uneven tables."""
-    assert parity[f"packing-{layout}"]["bad"] == []
+    sentinel are the reference's, at 3 shards of uneven tables; at an odd
+    ``dim`` the rows sit at the pitch, their pad columns zero."""
+    for dim in STORE_DIMS:
+        res = parity[f"packing-{layout}-{dim}"]
+        assert res["bad"] == [] and res["pitch"] == teng.row_pitch(dim), dim
 
 
 @pytest.mark.parametrize("n", SWEEP_SHARDS)
@@ -279,10 +309,16 @@ def test_one_shard_matches_single_device_and_reference(layout):
     """A 1-shard engine is the single-device engine: pooled bags exactly
     equal to the port's ``DeviceServingEngine`` and within the tolerance of
     the reference's 1-way ``ShardedServingEngine``; ``sm_ios``,
-    ``sm_time_us``, latency and cache state exactly equal to both."""
+    ``sm_time_us``, latency and cache state exactly equal to both. At an
+    odd ``dim`` both hold rows at the same pitch."""
+    for dim in STORE_DIMS:
+        _one_shard_case(layout, dim)
+
+
+def _one_shard_case(layout, dim):
     rows = [40, 64, 24]
     cfg = dict(hbm_cache_bytes=1 << 11, use_kernels=False)
-    tables = _tables(np.random.default_rng(1), rows)
+    tables = _tables(np.random.default_rng(1), rows, dim)
     j, t = _pair(tables, 1, layout, **cfg)
     single = teng.DeviceServingEngine(tables, tio.DEVICES["nand_flash"],
                                       teng.EngineConfig(**cfg), torch_device="cpu")
@@ -303,6 +339,22 @@ def test_one_shard_matches_single_device_and_reference(layout):
     for a, b in ((t.payload[0], single.payload), (t.scale[0], single.scale),
                  (t.bias[0], single.bias)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", EMBED_LAYOUTS)
+def test_blocked_quantize_gives_the_same_shard_stores(monkeypatch, layout):
+    """Each shard's slice quantized in blocks of a few rows, from a first
+    row inside the table, is the store of slices quantized at once."""
+    tables = _tables(np.random.default_rng(6), [7, 20, 1, 13], 13)
+    whole = ShardedServingEngine(tables, tio.DEVICES["nand_flash"],
+                                 mesh=make_embed_mesh(3, "cpu"), layout=layout)
+    monkeypatch.setattr(teng, "QUANT_BLOCK_ROWS", 3)
+    blocked = ShardedServingEngine(tables, tio.DEVICES["nand_flash"],
+                                   mesh=make_embed_mesh(3, "cpu"), layout=layout)
+    for k in range(3):
+        for name in ("payload", "scale", "bias"):
+            assert torch.equal(getattr(blocked, name)[k],
+                               getattr(whole, name)[k]), (k, name)
 
 
 def test_make_embed_mesh_on_cpu_and_explicit_devices():

@@ -147,6 +147,7 @@ def test_no_wall_recorder_reads_no_clock(monkeypatch, flag):
         counters = tel.registry.as_dict()["counters"]
         assert counters["engine.batches"] == 2
         assert "engine.slots" not in counters and "engine.valid_keys" not in counters
+        assert not {"engine.dim", "engine.row_pitch"} & set(tel.registry.gauges)
 
 
 def test_slot_counters_are_the_blocks():
@@ -161,6 +162,24 @@ def test_slot_counters_are_the_blocks():
     counters = eng.telemetry.registry.as_dict()["counters"]
     assert counters["engine.slots"] == slots
     assert counters["engine.valid_keys"] == keys < slots
+
+
+@pytest.mark.parametrize("dim,pitch", [(8, 8), (13, 16), (279, 280)])
+def test_width_gauges_name_the_pitch(dim, pitch):
+    """With the wall spans on, the registry's gauges ``engine.dim`` and
+    ``engine.row_pitch`` say at which width the kernels ran: set once a
+    registry, and again on the fresh one a reset brings."""
+    tables = _tables(dim=dim)
+    eng = _wall_engine(tables)
+    chunks = _chunks(tables, n=3, seed=6)
+    for ch in chunks[:2]:
+        eng.serve_columnar(ch, 1e4)
+    gauges = eng.telemetry.registry.as_dict()["gauges"]
+    assert (gauges["engine.dim"], gauges["engine.row_pitch"]) == (dim, pitch)
+    eng.telemetry.reset()
+    eng.serve_columnar(chunks[2], 1e4)
+    gauges = eng.telemetry.registry.as_dict()["gauges"]
+    assert (gauges["engine.dim"], gauges["engine.row_pitch"]) == (dim, pitch)
 
 
 def test_reset_and_merge_carry_the_wall_recorder():
