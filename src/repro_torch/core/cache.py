@@ -153,7 +153,9 @@ class TorchRowCache:
 
     def insert(self, state: dict, tables: torch.Tensor, rows: torch.Tensor,
                values: torch.Tensor, mask=None) -> dict:
-        """Insert rows (LRU way eviction). mask=False entries are skipped.
+        """Insert rows (LRU way eviction). mask=False entries are skipped;
+        with no mask every row is inserted, and inserting the rows a mask
+        selects, in order, leaves the state as the masked insert does.
 
         New keys landing in the same set within one batch take distinct ways:
         each gets its rank among the batch's new keys for that set (in order
@@ -167,14 +169,13 @@ class TorchRowCache:
         tables, rows = tables.to(torch.int32), rows.to(torch.int32)
         n = tables.shape[0]
         dev = tables.device
-        if mask is None:
-            mask = torch.ones(n, dtype=torch.bool, device=dev)
         sets = set_index(tables, rows, g.num_sets)
         match = self._match(state, sets, tables, rows)
         already = match.any(dim=1)
+        new = ~already if mask is None else mask & ~already
         # rank each new masked key within its set: sort keys by set id
         # (stable), number the positions inside each run
-        rank_key = torch.where(mask & ~already, sets, g.num_sets)  # park others
+        rank_key = torch.where(new, sets, g.num_sets)              # park others
         order = torch.argsort(rank_key, stable=True)
         sorted_sets = rank_key[order]
         pos = torch.arange(n, device=dev)
@@ -188,7 +189,7 @@ class TorchRowCache:
         way = torch.where(already, match.to(torch.int32).argmax(dim=1), way_new)
         # masked-out entries are dropped; of the writers to one slot the last
         # in order is kept, so the scatter below has distinct targets
-        sel = torch.nonzero(mask).squeeze(1)
+        sel = pos if mask is None else torch.nonzero(mask).squeeze(1)
         slot = sets[sel] * g.ways + way[sel]
         by_slot = torch.argsort(slot, stable=True)
         ordered = slot[by_slot]

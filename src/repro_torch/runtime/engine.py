@@ -11,7 +11,8 @@ serves a whole ``[batch, tables, pooling]`` index block on the torch device:
                (§4.4); hit and padded positions point at a zero sentinel row.
     dedupe  -- a repeated missed key costs one SM IO, charged to its first
                occurrence in (query, table, position) order.
-    fill    -- the fetched rows are dequantized and inserted (LRU ways).
+    fill    -- the unique misses alone are compacted, dequantized and
+               inserted (LRU ways).
 
 The pooled output is the hit-side pool plus the miss-side pool. Only the
 ``[B, T]`` miss counts and the pooled block come back to the host, where the
@@ -36,7 +37,8 @@ the clock of ``torch.profiler``'s device records: ``engine.serve`` >
 ``engine.densify``, ``engine.validate``, ``engine.h2d``, ``engine.step``
 (> ``step.probe``, ``step.hit_pool``, ``step.miss_pool``, ``step.dedupe``,
 ``step.fill``), ``engine.d2h``, ``engine.account``; and the counters
-``engine.slots`` (B*T*P) and ``engine.valid_keys``; it sets the gauges
+``engine.slots`` (B*T*P), ``engine.valid_keys`` and ``engine.filled_rows``
+(the unique misses the fill dequantized); it sets the gauges
 ``engine.dim`` and ``engine.row_pitch`` (which launch plans ran) once on
 each registry it serves into. Without it the engine reads no clock, and
 its registry holds what the reference's does.
@@ -110,6 +112,25 @@ def fill_rows(store: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     if deq.shape[1] != dim:
         deq[:, dim:] = 0.0
     return deq
+
+
+def fill_misses(cache: TorchRowCache, state: dict,
+                store: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                tables: torch.Tensor, rows: torch.Tensor,
+                store_rows: torch.Tensor, io_mask: torch.Tensor,
+                dim: int) -> int:
+    """Fill ``cache`` with a call's unique misses: the positions ``io_mask``
+    marks among the step's flat ``(tables, rows)`` keys, whose rows of
+    ``store`` are ``store_rows``. The positions are compacted, in order,
+    before any fill work, so only they are dequantized (``fill_rows``) and
+    offered to ``cache.insert``; the state is the masked insert's over every
+    slot, bit for bit (ranks follow the order of appearance, the last writer
+    in order wins). The cache's clock advances once, also when nothing
+    fills. Returns K, the rows filled; reading it is the fill's one sync."""
+    sel = torch.nonzero(io_mask).squeeze(1)
+    cache.insert(state, tables[sel], rows[sel],
+                 fill_rows(store, store_rows[sel], dim))
+    return sel.shape[0]
 
 
 def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
@@ -287,12 +308,14 @@ class DeviceServingEngine:
         io_mask = miss & first
         if ws is not None:
             ws.lap("step.dedupe")
-        # fill: dequantize the fetched rows and insert them; duplicates are
-        # masked out so one key fills one way
-        deq = fill_rows((self.payload, self.scale, self.bias), grow, D)
-        cache.insert(self.state, tq, rq, deq, mask=io_mask)
+        # fill from the unique misses alone: duplicates are masked out so
+        # one key fills one way
+        filled = fill_misses(cache, self.state,
+                             (self.payload, self.scale, self.bias),
+                             tq, rq, grow, io_mask, D)
         if ws is not None:
             ws.lap("step.fill")
+            self.telemetry.registry.inc("engine.filled_rows", filled)
         miss_counts = io_mask.reshape(B, T, P).sum(dim=2)
         pooled = pooled_hit + pooled_miss
         if ws is not None:

@@ -47,7 +47,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import EmbedMesh, make_embed_mesh
 from repro_torch.launch.sharding import check_layout
 from repro_torch.runtime.engine import (EngineConfig, dense_from_chunk,
-                                        fill_rows, new_store, quantize_into,
+                                        fill_misses, new_store, quantize_into,
                                         row_pitch)
 
 
@@ -205,13 +205,12 @@ class ShardedServingEngine:
         first = torch.empty_like(head)
         first[order] = head
         io_mask = miss & first
-        # fill, rounded once as the reference's fused multiply-add
-        # (``engine.fill_rows``). A foreign key of the table layout may point
-        # past this shard's rows (the reference's gather clamps it); it is
-        # never inserted, so it reads the sentinel here
-        fr = torch.where(v, lr, self.sentinel)
-        deq = fill_rows((payload, scale, bias), fr, D)
-        cache.insert(state, tq, rq, deq, mask=io_mask)
+        # fill from the shard's unique misses alone, as the single engine
+        # does (``engine.fill_misses``). A foreign key of the table layout
+        # may point past this shard's rows (the reference's gather clamps
+        # it); it is never a miss of this shard, so it is never read
+        fill_misses(cache, state, (payload, scale, bias), tq, rq, lr,
+                    io_mask, D)
         return pooled_hit + pooled_miss, io_mask.reshape(B, T, P).sum(dim=2)
 
     def _combine(self, parts: List[torch.Tensor]) -> torch.Tensor:

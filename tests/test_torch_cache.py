@@ -196,3 +196,93 @@ def test_lookup_device_kernel_path_and_valid_mask():
                               use_kernel=use_kernel)
         assert hit.tolist() == [True, True, False, True, False, False]
     p.lookup_device([0, 1, 2, 0, 0, 1], [1, 2, 3, 4, 9, 2], use_kernel=True)
+
+
+# ---------------------------------------------------------------------------
+# the fill's compacted insert: the rows a mask selects, in order, unmasked
+# ---------------------------------------------------------------------------
+
+
+def _assert_same_state(a: dict, b: dict):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+
+def _masked_and_compacted(cache, full, comp, t, r, v, mask):
+    """One insert both ways: masked over every row into ``full``, and of
+    the rows ``mask`` selects, in order and with no mask, into ``comp``."""
+    cache.insert(full, t, r, v, mask=mask)
+    sel = torch.nonzero(mask).squeeze(1)
+    cache.insert(comp, t[sel], r[sel], v[sel])
+    _assert_same_state(full, comp)
+
+
+@pytest.mark.parametrize("num_sets,ways", [(37, 4), (3, 2)])
+@pytest.mark.parametrize("seed", range(3))
+def test_insert_of_selected_rows_equals_masked_insert(num_sets, ways, seed):
+    """Over 40 calls with probes between them (so stamps differ), duplicate
+    keys, resident keys, more new keys in one set than ways (wrapped ranks)
+    and calls that select nothing, inserting the selected rows with no mask
+    leaves every state tensor, ``clock`` included, equal to the masked
+    insert over all rows."""
+    rng = np.random.default_rng(seed)
+    cache = tc.TorchRowCache(tc.CacheGeometry(num_sets, ways, 5), device="cpu")
+    full, comp = cache.init(), cache.init()
+    wrapped = 0
+    for call in range(40):
+        n = int(rng.integers(1, 80))
+        t = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32))
+        r = torch.from_numpy(rng.integers(0, 60, n).astype(np.int32))
+        v = torch.from_numpy(rng.standard_normal((n, 5)).astype(np.float32))
+        share = 0.0 if call % 7 == 3 else rng.random()
+        mask = torch.from_numpy(rng.random(n) < share)
+        sets = tc.set_index(t, r, num_sets)[mask]
+        if len(sets):
+            wrapped += int(torch.bincount(sets).max() > ways)
+        clock = int(full["clock"])
+        _masked_and_compacted(cache, full, comp, t, r, v, mask)
+        assert int(comp["clock"]) == clock + 1
+        probe = torch.from_numpy(rng.integers(0, 60, 16).astype(np.int32))
+        tp = torch.from_numpy(rng.integers(0, 3, 16).astype(np.int32))
+        cache.lookup_device(full, tp, probe, use_kernel=False)
+        cache.lookup_device(comp, tp, probe, use_kernel=False)
+        _assert_same_state(full, comp)
+    assert wrapped > 0
+
+
+def test_insert_of_no_rows_advances_the_clock_only():
+    """K = 0: an insert of no rows changes nothing but ``clock``, which
+    advances once, as the masked insert that selects nothing does."""
+    cache = tc.TorchRowCache(tc.CacheGeometry(4, 2, 3), device="cpu")
+    full, comp = cache.init(), cache.init()
+    t = torch.tensor([0, 1, 2, 0], dtype=torch.int32)
+    r = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+    v = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    _masked_and_compacted(cache, full, comp, t, r, v, torch.ones(4, dtype=torch.bool))
+    before = {k: x.clone() for k, x in comp.items()}
+    _masked_and_compacted(cache, full, comp, t, r, v, torch.zeros(4, dtype=torch.bool))
+    assert int(comp["clock"]) == int(before["clock"]) + 1
+    for k in before:
+        if k != "clock":
+            assert torch.equal(comp[k], before[k]), k
+    empty = torch.zeros(0, dtype=torch.int32)
+    cache.insert(comp, empty, empty, torch.zeros((0, 3)))
+    assert int(comp["clock"]) == int(before["clock"]) + 2
+
+
+def test_compacted_wrapped_ranks_and_duplicates_last_writer_wins():
+    """Five new keys (one repeated) selected out of eight into a 1-set,
+    2-way cache: ranks wrap past the ways, and of the writers to one way
+    the last in order wins, compacted or masked."""
+    cache = tc.TorchRowCache(tc.CacheGeometry(1, 2, 2), device="cpu")
+    full, comp = cache.init(), cache.init()
+    t = torch.zeros(8, dtype=torch.int32)
+    r = torch.tensor([9, 1, 2, 9, 2, 3, 4, 9], dtype=torch.int32)
+    v = torch.arange(16, dtype=torch.float32).reshape(8, 2)
+    mask = torch.tensor([False, True, True, False, True, True, True, False])
+    _masked_and_compacted(cache, full, comp, t, r, v, mask)
+    # ranks 0-4 over ways [0, 1]: way 0 takes rows 1, 2 (the repeat), 4;
+    # way 1 takes 2, 3
+    assert comp["tag_row"][0].tolist() == [4, 3]
+    assert comp["data"][0, :, 0].tolist() == [12.0, 10.0]

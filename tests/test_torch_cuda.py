@@ -188,7 +188,8 @@ def test_kernels_at_m2_widths_bit_for_bit(cuda, D, gather_vec, probe_vec):
 def test_engine_at_odd_dim_on_card_matches_cpu(cuda):
     """At M2's 279 values a row the engine on the card (rows at a pitch of
     280) equals the same engine on the CPU: SM reads and latency, the cache
-    state, pooled bags within the columnar tolerance."""
+    state, pooled bags within the columnar tolerance; also after a call in
+    which nothing misses, so nothing fills."""
     rng = np.random.default_rng(5)
     tables = {t: rng.standard_normal((300, 279)).astype(np.float32)
               for t in range(3)}
@@ -209,6 +210,19 @@ def test_engine_at_odd_dim_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(pc, card.reference_pool(idx, valid), rtol=1e-5, atol=1e-5)
     counts = ops.launch_counts()
     assert counts["gather_pool"] == counts["cache_probe"] == 3
+    # one key, served twice: the second call hits everywhere, so its fill
+    # has no rows (K = 0); its probe and its empty fill each tick the clock
+    one = np.zeros((8, 3, 8), np.int32)
+    one_valid = np.zeros(one.shape, bool)
+    one_valid[:2, 0, :2] = True
+    for _ in range(2):
+        clock = int(card.state["clock"])
+        pc, sc = card.serve_batch(one, 1e4, valid=one_valid)
+        ph, sh = host.serve_batch(one, 1e4, valid=one_valid)
+        assert [s.sm_ios for s in sc] == [s.sm_ios for s in sh]
+        np.testing.assert_allclose(pc, ph, rtol=1e-5, atol=1e-5)
+    assert sum(s.sm_ios for s in sc) == 0
+    assert int(card.state["clock"]) == clock + 2
     for k, v in card.state.items():
         assert torch.equal(v.cpu(), host.state[k]), k
 

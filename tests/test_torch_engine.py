@@ -270,6 +270,114 @@ def test_engine_matches_host_store_accounting():
 
 
 # ---------------------------------------------------------------------------
+# the fill over the call's unique misses alone
+# ---------------------------------------------------------------------------
+
+
+def all_slot_fill(cache, state, store, tables, rows, store_rows, io_mask, dim):
+    """The fill as it ran over every slot of the block: each slot's row
+    dequantized, then one insert masked to the unique misses. A slot outside
+    the mask is never inserted; where its row lies past the store (a foreign
+    key of the sharded table layout) it reads the store's last row, the
+    zero sentinel."""
+    last = store[0].shape[0] - 1
+    deq = teng.fill_rows(store, store_rows.clamp(max=last), dim)
+    cache.insert(state, tables, rows, deq, mask=io_mask)
+    return int(io_mask.sum())
+
+
+def spy_fill_rows(monkeypatch):
+    """Record the rows each ``fill_rows`` call dequantizes."""
+    seen, fill_rows = [], teng.fill_rows
+
+    def spy(store, rows, dim):
+        seen.append(rows.shape[0])
+        return fill_rows(store, rows, dim)
+
+    monkeypatch.setattr(teng, "fill_rows", spy)
+    return seen
+
+
+def _fill_calls(rng, rows):
+    """(idx, valid) blocks of a call sequence into a 3-set, 4-way cache:
+    a cold call of repeated keys from a small domain (more new keys in a
+    set than ways), a partly warm one with a valid mask, one key twice, and
+    the same again, which all hits."""
+    B, P = 4, 8
+    small = np.stack([rng.integers(0, 30, (B, P)) for _ in rows], axis=1)
+    mixed = np.stack([rng.integers(0, r, (B, P)) for r in rows], axis=1)
+    mixed = np.where(rng.random(mixed.shape) < 0.5, small, mixed)
+    one = np.zeros((B, len(rows), P), np.int64)
+    one_valid = np.zeros(one.shape, bool)
+    one[:, 0, :2] = 7
+    one_valid[:2, 0, :2] = True
+    return [(small, np.ones(small.shape, bool)),
+            (mixed, rng.random(mixed.shape) < 0.8),
+            (one, one_valid), (one, one_valid)]
+
+
+@pytest.mark.parametrize("dim", [24, 279])
+def test_fill_over_unique_misses_equals_all_slot_fill(monkeypatch, dim):
+    """The fill of the call's unique misses alone leaves the cache state of
+    the fill over every slot bit for bit (tags, data, stamps, clock, hits,
+    misses) after each call, and serves the same; ``fill_rows`` is handed K
+    rows, the call's summed miss counts, not B*T*P. The all-hit call fills
+    nothing and still advances the clock. At 279 the pad column of every
+    cached row is zero. The reference engine, served the same calls, holds
+    the same state after each."""
+    rng = np.random.default_rng(dim)
+    rows = (300, 200, 250)
+    tables = {t: rng.standard_normal((r, dim)).astype(np.float32)
+              for t, r in enumerate(rows)}
+    calls = _fill_calls(rng, rows)
+    budget = 3 * 4 * (row_bytes(dim) + (40 if row_bytes(dim) > 255 else 8))
+    cfg = teng.EngineConfig(hbm_cache_bytes=budget, ways=4, use_kernels=False)
+
+    def run():
+        eng = teng.DeviceServingEngine(tables, tio.DEVICES["nand_flash"], cfg,
+                                       torch_device="cpu")
+        assert (eng.cache.geo.num_sets, eng.cache.geo.ways) == (3, 4)
+        out = []
+        for idx, valid in calls:
+            pooled, stats = eng.serve_batch(idx.astype(np.int32), 1e4, valid)
+            out.append((pooled, [(s.sm_ios, s.sm_time_us) for s in stats],
+                        {k: v.clone() for k, v in eng.state.items()}))
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(teng, "fill_misses", all_slot_fill)
+        old_seen = spy_fill_rows(m)
+        want = run()
+    seen = spy_fill_rows(monkeypatch)
+    got = run()
+    slots = calls[0][0].size
+    assert old_seen == [slots] * len(calls)
+    assert seen == [sum(i for i, _ in q) for _, q, _ in got]
+    # more unique misses than the cache holds: some set took more new keys
+    # than ways in one call, so ranks wrapped
+    assert 3 * 4 < seen[0] < slots
+    assert seen[1] > 0 and seen[2] == 1 and seen[3] == 0
+    for (pg, qg, sg), (pw, qw, sw) in zip(got, want):
+        np.testing.assert_array_equal(pg, pw)
+        assert qg == qw
+        for k in sw:
+            assert sg[k].dtype == sw[k].dtype and torch.equal(sg[k], sw[k]), k
+        assert not sg["data"][..., dim:].any()
+    # the all-hit call: its probe and its empty fill each tick the clock
+    assert int(got[3][2]["clock"]) == int(got[2][2]["clock"]) + 2
+    assert int(got[3][2]["hits"]) == int(got[2][2]["hits"]) + 4
+    # the reference engine served the same calls: the same state after each
+    j = jeng.DeviceServingEngine(tables, jio.DEVICES["nand_flash"],
+                                 jeng.EngineConfig(hbm_cache_bytes=budget, ways=4,
+                                                   use_kernels=False))
+    for (idx, valid), (pg, qg, sg) in zip(calls, got):
+        jp, js = j.serve_batch(idx.astype(np.int32), 1e4, valid=valid)
+        assert [(s.sm_ios, s.sm_time_us) for s in js] == qg
+        np.testing.assert_allclose(pg, jp, rtol=0, atol=POOL_TOL)
+        _assert_state_equal(j.state, sg)
+
+
+# ---------------------------------------------------------------------------
 # IOEngine (analytic mode): bit-equal to the reference
 # ---------------------------------------------------------------------------
 

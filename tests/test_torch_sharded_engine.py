@@ -38,6 +38,7 @@ from repro_torch.runtime import engine as teng
 from repro_torch.runtime.sharded_engine import ShardedServingEngine
 from repro_torch.workloads import ARCHETYPES as TARCH
 from repro_torch.workloads import build_trace as tbuild
+from test_torch_engine import all_slot_fill, spy_fill_rows
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
@@ -355,6 +356,65 @@ def test_blocked_quantize_gives_the_same_shard_stores(monkeypatch, layout):
         for name in ("payload", "scale", "bias"):
             assert torch.equal(getattr(blocked, name)[k],
                                getattr(whole, name)[k]), (k, name)
+
+
+@pytest.mark.parametrize("layout", EMBED_LAYOUTS)
+def test_fill_over_unique_misses_equals_all_slot_fill(monkeypatch, layout):
+    """Through the helper both engines share (``engine.fill_misses``), each
+    of 2 shards fills from its unique misses alone: every shard's cache
+    state equals the all-slot fill's bit for bit after each call, the
+    served results too, and ``fill_rows`` is handed the call's summed
+    ``sm_ios`` rows over the shards. The last call all hits: it fills
+    nothing and still advances each shard's clock."""
+    from repro_torch.runtime import sharded_engine
+    dim, rows = 13, [40, 64, 24]
+    tables = _tables(np.random.default_rng(5), rows, dim)
+    cfg = teng.EngineConfig(hbm_cache_bytes=3 * 4 * (dim + 16), ways=4,
+                            use_kernels=False)
+    rng = np.random.default_rng(6)
+    cold = np.stack([rng.integers(0, r, (4, 8)) for r in rows], axis=1)
+    warm = np.where(rng.random(cold.shape) < 0.5, cold,
+                    np.stack([rng.integers(0, r, (4, 8)) for r in rows], axis=1))
+    one, one_valid = np.zeros_like(cold), np.zeros(cold.shape, bool)
+    # a row of table 1 the first two calls never touch: one miss, then hits
+    one[:2, 1, :3] = min(set(range(rows[1])) - set(cold[:, 1].ravel())
+                         - set(warm[:, 1].ravel()))
+    one_valid[:2, 1, :3] = True
+    calls = [(cold, None), (warm, rng.random(cold.shape) < 0.8),
+             (one, one_valid), (one, one_valid)]
+
+    def run(fill):
+        with monkeypatch.context() as m:
+            m.setattr(sharded_engine, "fill_misses", fill)
+            seen = spy_fill_rows(m)
+            eng = ShardedServingEngine(tables, tio.DEVICES["nand_flash"], cfg,
+                                       mesh=make_embed_mesh(2, "cpu"),
+                                       layout=layout)
+            assert (eng.caches[0].geo.num_sets, eng.caches[0].geo.ways) == (3, 4)
+            out = []
+            for idx, valid in calls:
+                pooled, stats = eng.serve_batch(idx.astype(np.int32), 5e4, valid)
+                out.append((pooled, _per_query(stats),
+                            [{k: v.clone() for k, v in st.items()}
+                             for st in eng.state], seen[-2:]))
+        return out
+
+    want, got = run(all_slot_fill), run(teng.fill_misses)
+    slots = cold.size
+    for (pg, qg, sg, fg), (pw, qw, sw, fw) in zip(got, want):
+        np.testing.assert_array_equal(pg, pw)
+        assert qg == qw
+        for k in range(2):
+            for key in STATE_KEYS:
+                assert torch.equal(sg[k][key], sw[k][key]), (k, key)
+            assert not sg[k]["data"][..., dim:].any()
+        assert fw == [slots, slots]
+        assert sum(fg) == sum(q[0] for q in qg)
+    filled = [sum(f) for *_, f in got]
+    assert 2 * 3 * 4 < filled[0] < slots and filled[1] > 0
+    assert filled[2:] == [1, 0]
+    for k in range(2):
+        assert int(got[3][2][k]["clock"]) == int(got[2][2][k]["clock"]) + 2
 
 
 def test_make_embed_mesh_on_cpu_and_explicit_devices():

@@ -146,7 +146,8 @@ def test_no_wall_recorder_reads_no_clock(monkeypatch, flag):
         assert not [e for e in tel.tracer.events if e[3].startswith(("engine.", "step."))]
         counters = tel.registry.as_dict()["counters"]
         assert counters["engine.batches"] == 2
-        assert "engine.slots" not in counters and "engine.valid_keys" not in counters
+        assert not {"engine.slots", "engine.valid_keys",
+                    "engine.filled_rows"} & set(counters)
         assert not {"engine.dim", "engine.row_pitch"} & set(tel.registry.gauges)
 
 
@@ -162,6 +163,27 @@ def test_slot_counters_are_the_blocks():
     counters = eng.telemetry.registry.as_dict()["counters"]
     assert counters["engine.slots"] == slots
     assert counters["engine.valid_keys"] == keys < slots
+
+
+def test_filled_rows_counter_is_the_calls_sm_ios():
+    """``engine.filled_rows`` counts the rows the fill dequantized and
+    offered to the cache: the call's unique misses, its queries' summed
+    ``sm_ios``, fewer than the block's slots."""
+    tables = _tables(4)
+    eng = _wall_engine(tables)
+    reg = eng.telemetry.registry
+    total = 0
+    for ch in _chunks(tables, n=4, seed=9):
+        _, _, ios = eng.serve_columnar(ch, 1e4)
+        total += int(ios.sum())
+        assert reg.as_dict()["counters"]["engine.filled_rows"] == total
+    idx, valid = dense_from_chunk(_chunks(tables, n=1, seed=9)[0], eng.table_slot,
+                                  len(tables))
+    _, stats = eng.serve_batch(idx, 1e4, valid)          # warm: few or no misses
+    total += sum(s.sm_ios for s in stats)
+    counters = reg.as_dict()["counters"]
+    assert counters["engine.filled_rows"] == total == eng.stats.sm_ios
+    assert 0 < total < counters["engine.valid_keys"] < counters["engine.slots"]
 
 
 @pytest.mark.parametrize("dim,pitch", [(8, 8), (13, 16), (279, 280)])
