@@ -18,6 +18,14 @@ The pooled output is the hit-side pool plus the miss-side pool. Only the
 ``[B, T]`` miss counts and the pooled block come back to the host, where the
 analytic ``IOEngine`` prices each query's IO under Eq. 3.
 
+Both engines share this module's code. The step over one store and one
+cache is ``serve_step``: ``DeviceServingEngine`` runs it once over its one
+store, ``ShardedServingEngine`` once a shard. The host path is
+``ServingEngineBase``'s: validation (padded positions zeroed once, on the
+host), the copies in and out, the accounting and the entries
+``serve_batch`` and ``serve_columnar``. An engine keeps its store layout,
+its ``_step``, its oracle ``reference_pool`` and ``hit_rate``.
+
 The store and the cache hold each row at a pitch (``row_pitch``): ``dim``
 rounded up to a multiple of ``ROW_ALIGN`` elements, so both kernels move
 rows in wide vectors whatever ``dim`` is (an odd ``dim`` would drop them to
@@ -40,8 +48,9 @@ the clock of ``torch.profiler``'s device records: ``engine.serve`` >
 ``engine.slots`` (B*T*P), ``engine.valid_keys`` and ``engine.filled_rows``
 (the unique misses the fill dequantized); it sets the gauges
 ``engine.dim`` and ``engine.row_pitch`` (which launch plans ran) once on
-each registry it serves into. Without it the engine reads no clock, and
-its registry holds what the reference's does.
+each registry it serves into. The sharded engine records the same less the
+``step.*`` spans and ``engine.filled_rows``. Without it an engine reads no
+clock, and its registry holds what the reference's does.
 """
 from __future__ import annotations
 
@@ -133,6 +142,65 @@ def fill_misses(cache: TorchRowCache, state: dict,
     return sel.shape[0]
 
 
+def serve_step(tables: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
+               store_rows: torch.Tensor, grow: torch.Tensor,
+               shape: Tuple[int, int, int],
+               store: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+               sentinel: int, cache: TorchRowCache, state: dict, dim: int,
+               use_kernels: bool, ws: Optional[WallSpans] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The device step over one store and one cache, for both engines.
+
+    ``tables``, ``rows``: the flat ``[B*T*P]`` cache keys (table slot, row
+    of the table). ``valid``: which keys this store serves (padding, and in
+    a shard the keys it does not own, masked out). ``store_rows``: each
+    key's row of ``store``; ``grow``: its global row, which keys the miss
+    dedupe. ``shape`` is the block's ``(B, T, P)``. Returns (pooled
+    ``[B, T, dim]`` f32, deduped miss counts ``[B, T]``, K the rows
+    filled). With ``ws`` it laps ``step.probe``, ``step.hit_pool``,
+    ``step.miss_pool``, ``step.dedupe`` and ``step.fill``."""
+    B, T, P = shape
+    vals, hit, _ = cache.lookup_device(state, tables, rows,
+                                       use_kernel=use_kernels, valid=valid)
+    if ws is not None:
+        ws.lap("step.probe")
+    # hit-side pool straight from HBM cache data, less the pad columns
+    pooled_hit = (vals * hit[:, None]).reshape(B, T, P, -1).sum(dim=2)[..., :dim]
+    if ws is not None:
+        ws.lap("step.hit_pool")
+    # miss-side pool fused over the quantized backing store; hits and
+    # masked positions point at the zero sentinel row
+    gidx = torch.where(hit | ~valid, sentinel, store_rows)
+    pooled_miss = ops.embedding_gather_pool(
+        *store, gidx.reshape(B * T, P).to(torch.int32),
+        use_kernel=use_kernels).reshape(B, T, -1)[..., :dim]
+    if ws is not None:
+        ws.lap("step.miss_pool")
+    # unique-miss coalescing: group equal global rows with a stable sort;
+    # the group head is the first occurrence (-1 is one dead group). A
+    # shard's keys are its own, so the shards' dedupes union to the single
+    # engine's
+    miss = valid & ~hit
+    gkey = torch.where(miss, grow, -1)
+    order = torch.argsort(gkey, stable=True)
+    ks = gkey[order]
+    head = torch.ones_like(ks, dtype=torch.bool)
+    head[1:] = ks[1:] != ks[:-1]
+    first = torch.empty_like(head)
+    first[order] = head
+    io_mask = miss & first
+    if ws is not None:
+        ws.lap("step.dedupe")
+    # fill from the unique misses alone: duplicates are masked out so one
+    # key fills one way. A key outside ``valid`` (a foreign key of the
+    # sharded table layout may point past this store) is never read
+    filled = fill_misses(cache, state, store, tables, rows, store_rows,
+                         io_mask, dim)
+    if ws is not None:
+        ws.lap("step.fill")
+    return pooled_hit + pooled_miss, io_mask.reshape(B, T, P).sum(dim=2), filled
+
+
 def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
                      num_tables: int) -> Tuple[np.ndarray, np.ndarray]:
     """Columnar (CSR) chunk -> dense ``[B, T, P]`` index block + valid mask.
@@ -196,17 +264,16 @@ class EngineConfig:
     io_queue: IOQueueConfig = dataclasses.field(default_factory=IOQueueConfig)
 
 
-class DeviceServingEngine:
-    """Batched multi-query, multi-table serving over device kernels.
+class ServingEngineBase:
+    """The host path both engines share: validation, the copies in and out,
+    the Eq. 3 accounting, the wall spans and the entries ``serve_batch`` and
+    ``serve_columnar``. A subclass builds its store and caches on
+    ``devices`` and supplies ``_step``."""
 
-    ``tables``: {table_id: [rows, dim] float array or tensor} -- every table
-    shares one embedding dim (one backing store, one cache geometry).
-    ``device`` is the SM device model; ``torch_device`` is where the store,
-    the cache and the step live (``cuda`` unless the caller asks for the
-    CPU)."""
+    devices: Tuple[torch.device, ...]
 
     def __init__(self, tables: Dict[int, object], device: DeviceModel,
-                 cfg: Optional[EngineConfig] = None, *, torch_device="cuda"):
+                 cfg: Optional[EngineConfig]):
         cfg = EngineConfig() if cfg is None else cfg
         if not tables:
             raise ValueError("need at least one table")
@@ -214,39 +281,32 @@ class DeviceServingEngine:
         if len(dims) != 1:
             raise ValueError(f"tables must share one embedding dim, got {dims}")
         self.cfg = cfg
-        self.torch_device = dev = resolve_device(torch_device)
         self.dim = dims.pop()
+        self.pitch = row_pitch(self.dim)
+        self.row_bytes = row_bytes(self.dim, bits=8)
         self.table_ids: List[int] = list(tables)
+        self.table_slot = {t: i for i, t in enumerate(self.table_ids)}
         self.rows_per_table = np.array([tables[t].shape[0]
                                         for t in self.table_ids], np.int64)
-
-        self.pitch = row_pitch(self.dim)
-
-        # one backing store at the pitch, the tables in slot order, then the
-        # zero sentinel row
-        first = np.r_[0, np.cumsum(self.rows_per_table)[:-1]]
-        self.sentinel = R = int(self.rows_per_table.sum())      # the zero row
-        store = new_store(R + 1, self.dim, dev)
-        for t, lo in zip(self.table_ids, first.tolist()):
-            table = torch.as_tensor(tables[t], device=dev).detach()
-            quantize_into(store, table, 0, table.shape[0], lo)
-        self.payload, self.scale, self.bias = store
-        self.offsets = torch.as_tensor(first, dtype=torch.int64, device=dev)
-
-        self.row_bytes = row_bytes(self.dim, bits=8)
-        geo = dual_cache_geometry(cfg.hbm_cache_bytes, dim=self.pitch,
-                                  row_payload_bytes=self.row_bytes,
-                                  ways=cfg.ways)
-        self.cache = TorchRowCache(geo, device=dev)
-        self.state = self.cache.init()
+        self._geo = dual_cache_geometry(cfg.hbm_cache_bytes, dim=self.pitch,
+                                        row_payload_bytes=self.row_bytes,
+                                        ways=cfg.ways)
         self.io = IOEngine(device, cfg.num_devices, cfg.io_queue)
         self.stats = QueryStats()        # store-level totals, host-plane shape
         self.telemetry = None            # obs handle; None = bit-invisible
         self._wall_calls = 0             # calls served with wall spans on
         self._gauged = None              # the registry given the width gauges
-        self.table_slot = {t: i for i, t in enumerate(self.table_ids)}
 
-    # -- device step ----------------------------------------------------------
+    def _step(self, blocks: List[Tuple[torch.Tensor, torch.Tensor]],
+              ws: Optional[WallSpans]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``blocks[k]``: the block's ``(idx, valid)`` [B, T, P] on
+        ``devices[k]``, padded positions zeroed -> (pooled [B, T, dim] f32,
+        deduped miss counts [n, B, T]), both on ``devices[0]``."""
+        raise NotImplementedError
+
+    def _count_shards(self, reg, miss: np.ndarray) -> None:
+        """Per-shard counters of a ``[n, B, T]`` miss block: none here, so
+        the registry holds what the reference's does."""
 
     def _wall(self) -> Optional[WallSpans]:
         """A new call's wall spans; None unless the ``wall`` recorder is on."""
@@ -260,67 +320,9 @@ class DeviceServingEngine:
         self._wall_calls += 1
         return WallSpans(tel.wall, self._wall_calls)
 
-    def _step(self, idx: torch.Tensor, valid: torch.Tensor,
-              ws: Optional[WallSpans] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """idx [B, T, P] int32, valid [B, T, P] bool, both on the device ->
-        (pooled [B, T, dim] f32, deduped miss counts [B, T]). The cache is
-        keyed by table slot (0..T-1), not table id."""
-        cache, use_kernels, D = self.cache, self.cfg.use_kernels, self.dim
-        B, T, P = idx.shape
-        if ws is not None:
-            ws.open("engine.step")
-        # padded positions may hold any value (the reference's gathers clamp
-        # them; torch's raise): they are masked out of pooling, IO and the
-        # fill, so read row 0 of their table instead
-        idx = torch.where(valid, idx, 0)
-        tids = torch.arange(T, dtype=torch.int32, device=idx.device
-                            ).view(1, T, 1).expand(B, T, P)
-        tq, rq, vq = tids.reshape(-1), idx.reshape(-1), valid.reshape(-1)
-        vals, hit, _ = cache.lookup_device(self.state, tq, rq,
-                                           use_kernel=use_kernels, valid=vq)
-        if ws is not None:
-            ws.lap("step.probe")
-        # hit-side pool straight from HBM cache data, less the pad columns
-        pooled_hit = (vals * hit[:, None]).reshape(B, T, P, -1).sum(dim=2)[..., :D]
-        if ws is not None:
-            ws.lap("step.hit_pool")
-        # miss-side pool fused over the quantized backing store; hits and
-        # padded positions point at the zero sentinel row
-        grow = (self.offsets[tids.long()] + idx).reshape(-1)    # global row
-        gidx = torch.where(hit | ~vq, self.sentinel, grow)
-        pooled_miss = ops.embedding_gather_pool(
-            self.payload, self.scale, self.bias,
-            gidx.reshape(B * T, P).to(torch.int32),
-            use_kernel=use_kernels).reshape(B, T, -1)[..., :D]
-        if ws is not None:
-            ws.lap("step.miss_pool")
-        # unique-miss coalescing: group equal global rows with a stable sort;
-        # the group head is the first occurrence (-1 is one dead group)
-        miss = vq & ~hit
-        gkey = torch.where(miss, grow, -1)
-        order = torch.argsort(gkey, stable=True)
-        ks = gkey[order]
-        head = torch.ones_like(ks, dtype=torch.bool)
-        head[1:] = ks[1:] != ks[:-1]
-        first = torch.empty_like(head)
-        first[order] = head
-        io_mask = miss & first
-        if ws is not None:
-            ws.lap("step.dedupe")
-        # fill from the unique misses alone: duplicates are masked out so
-        # one key fills one way
-        filled = fill_misses(cache, self.state,
-                             (self.payload, self.scale, self.bias),
-                             tq, rq, grow, io_mask, D)
-        if ws is not None:
-            ws.lap("step.fill")
-            self.telemetry.registry.inc("engine.filled_rows", filled)
-        miss_counts = io_mask.reshape(B, T, P).sum(dim=2)
-        pooled = pooled_hit + pooled_miss
-        if ws is not None:
-            ws.close()
-        return pooled, miss_counts
+    def _empty(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return (np.zeros((0, len(self.table_ids), self.dim), np.float32),
+                np.zeros(0, np.float64), np.zeros(0, np.int64))
 
     # -- serving --------------------------------------------------------------
 
@@ -331,11 +333,36 @@ class DeviceServingEngine:
         ``table_ids``). Returns (pooled [B, T, dim] f32, per-query stats).
         ``valid`` (bool [B, T, P], optional) masks padded positions out of
         pooling, caching and IO accounting."""
-        return self._serve_block(idx, bg_iops, valid, self._wall())
+        pooled, sm_time, sm_ios = self._serve_block(idx, bg_iops, valid,
+                                                    self._wall())
+        lat = np.maximum(self.cfg.item_time_us, sm_time)
+        return pooled, [QueryStats(latency_us=q, sm_ios=n, sm_time_us=t)
+                        for q, n, t in zip(lat.tolist(), sm_ios.tolist(),
+                                           sm_time.tolist())]
+
+    def serve_columnar(self, chunk: ColumnarChunk, bg_iops: float = 0.0
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Serve a columnar (CSR) chunk through the device step. Returns
+        ``(pooled [B, T, dim] f32, sm_time_us [B] f64, sm_ios [B] i64)`` with
+        T in ``table_ids`` order (tables a query does not touch pool to
+        zero)."""
+        if chunk.n_queries == 0:
+            return self._empty()
+        ws = self._wall()
+        if ws is not None:
+            ws.open("engine.serve")
+        idx, valid = dense_from_chunk(chunk, self.table_slot,
+                                      len(self.table_ids))
+        if ws is not None:
+            ws.lap("engine.densify")
+        out = self._serve_block(idx, bg_iops, valid, ws)
+        if ws is not None:
+            ws.close()
+        return out
 
     def _serve_block(self, idx, bg_iops: float, valid,
                      ws: Optional[WallSpans]
-                     ) -> Tuple[np.ndarray, List[QueryStats]]:
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         idx = np.asarray(idx, np.int32)
         if idx.ndim != 3:
             raise ValueError(f"idx must be [B, T, P], got shape {idx.shape}")
@@ -345,76 +372,107 @@ class DeviceServingEngine:
                 f"{len(self.table_ids)}")
         valid = (np.ones(idx.shape, bool) if valid is None
                  else np.asarray(valid, bool))
+        # padded positions may hold any value (the reference's gathers clamp
+        # them; torch's raise): they are masked out of ownership, pooling,
+        # IO and the fill, so they read row 0 of their table
         live = np.where(valid, idx, 0)
         if (live < 0).any() or (live >= self.rows_per_table[None, :, None]).any():
             raise ValueError("row index out of range")
         if idx.shape[0] == 0:            # degenerate empty batch: no device
-            return (np.zeros((0, idx.shape[1], self.dim), np.float32), [])
+            return self._empty()
         if ws is not None:
             reg = self.telemetry.registry
             reg.inc("engine.slots", idx.size)
             reg.inc("engine.valid_keys", int(np.count_nonzero(valid)))
             ws.lap("engine.validate")
-        dev = self.torch_device
-        idx_d = torch.from_numpy(idx).to(dev)
-        valid_d = torch.from_numpy(valid).to(dev)
+        live_t, valid_t = torch.from_numpy(live), torch.from_numpy(valid)
+        copies = {d: (live_t.to(d), valid_t.to(d))
+                  for d in dict.fromkeys(self.devices)}
         if ws is not None:
             ws.lap("engine.h2d")
-        pooled, miss = self._step(idx_d, valid_d, ws)
+            ws.open("engine.step")
+        pooled, miss = self._step([copies[d] for d in self.devices], ws)
+        if ws is not None:
+            ws.close()
         pooled, miss = pooled.cpu().numpy(), miss.cpu().numpy()
         if ws is not None:
             ws.lap("engine.d2h")
-        stats = self._account(miss, bg_iops)
+        out = (pooled, *self._account(miss, bg_iops))
         if ws is not None:
             ws.lap("engine.account")
-        return pooled, stats
-
-    def serve_columnar(self, chunk: ColumnarChunk, bg_iops: float = 0.0
-                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Serve a columnar (CSR) chunk through the device step. Returns
-        ``(pooled [B, T, dim] f32, sm_time_us [B] f64, sm_ios [B] i64)`` with
-        T in ``table_ids`` order (tables a query does not touch pool to
-        zero)."""
-        T = len(self.table_ids)
-        if chunk.n_queries == 0:
-            return (np.zeros((0, T, self.dim), np.float32),
-                    np.zeros(0, np.float64), np.zeros(0, np.int64))
-        ws = self._wall()
-        if ws is not None:
-            ws.open("engine.serve")
-        idx, valid = dense_from_chunk(chunk, self.table_slot, T)
-        if ws is not None:
-            ws.lap("engine.densify")
-        pooled, stats = self._serve_block(idx, bg_iops, valid, ws)
-        out = (pooled,
-               np.array([s.sm_time_us for s in stats], np.float64),
-               np.array([s.sm_ios for s in stats], np.int64))
-        if ws is not None:
-            ws.close()
         return out
 
-    def _account(self, miss: np.ndarray, bg_iops: float) -> List[QueryStats]:
-        """Per-query IO + Eq. 3 latency accounting for a ``[B, T]`` block of
-        deduped miss counts; accumulates store-level ``stats`` exactly like
-        the host plane's ``serve_query`` running totals."""
-        # one coalesced submission across all (query, table) pairs
+    def _account(self, miss: np.ndarray, bg_iops: float
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+        """IO + Eq. 3 accounting for ``miss``, the ``[n, B, T]`` deduped
+        miss counts of the engine's n stores: one coalesced submission over
+        every (store, query, table) element, store-major. Returns each
+        query's SM time (the max over stores and tables, f64) and
+        ``sm_ios`` (the sum, i64); accumulates store-level ``stats`` one
+        query at a time, as the host plane's ``serve_query`` does."""
         rb = np.full(miss.size, self.row_bytes, np.int64)
         lats, _ = self.io.submit_batch_multi(miss.reshape(-1), rb, bg_iops)
-        sm_lat = lats.reshape(miss.shape).max(axis=1)
+        sm_time = lats.reshape(miss.shape).max(axis=(0, 2))
+        sm_ios = miss.sum(axis=(0, 2), dtype=np.int64)
         if self.telemetry is not None:
-            self.telemetry.registry.inc("engine.batches")
-            self.telemetry.registry.observe_many("engine.sm_time_us", sm_lat)
-        stats = []
-        for b in range(miss.shape[0]):
-            # Eq. 3: user-side SM time overlaps item-side compute; only the
-            # excess surfaces
-            q = QueryStats(latency_us=max(self.cfg.item_time_us, sm_lat[b]),
-                           sm_ios=int(miss[b].sum()),
-                           sm_time_us=float(sm_lat[b]))
-            self.stats.latency_us += q.latency_us
-            self.stats.sm_ios += q.sm_ios
-            stats.append(q)
-        return stats
+            reg = self.telemetry.registry
+            reg.inc("engine.batches")
+            reg.observe_many("engine.sm_time_us", sm_time)
+            self._count_shards(reg, miss)
+        # Eq. 3: user-side SM time overlaps item-side compute; only the
+        # excess surfaces
+        for q in np.maximum(self.cfg.item_time_us, sm_time).tolist():
+            self.stats.latency_us += q
+        self.stats.sm_ios += int(sm_ios.sum())
+        return sm_time, sm_ios
+
+
+class DeviceServingEngine(ServingEngineBase):
+    """Batched multi-query, multi-table serving over device kernels.
+
+    ``tables``: {table_id: [rows, dim] float array or tensor} -- every table
+    shares one embedding dim (one backing store, one cache geometry).
+    ``device`` is the SM device model; ``torch_device`` is where the store,
+    the cache and the step live (``cuda`` unless the caller asks for the
+    CPU)."""
+
+    def __init__(self, tables: Dict[int, object], device: DeviceModel,
+                 cfg: Optional[EngineConfig] = None, *, torch_device="cuda"):
+        super().__init__(tables, device, cfg)
+        self.torch_device = dev = resolve_device(torch_device)
+        self.devices = (dev,)
+
+        # one backing store at the pitch, the tables in slot order, then the
+        # zero sentinel row
+        first = np.r_[0, np.cumsum(self.rows_per_table)[:-1]]
+        self.sentinel = R = int(self.rows_per_table.sum())      # the zero row
+        store = new_store(R + 1, self.dim, dev)
+        for t, lo in zip(self.table_ids, first.tolist()):
+            table = torch.as_tensor(tables[t], device=dev).detach()
+            quantize_into(store, table, 0, table.shape[0], lo)
+        self.payload, self.scale, self.bias = store
+        self.offsets = torch.as_tensor(first, dtype=torch.int64, device=dev)
+
+        self.cache = TorchRowCache(self._geo, device=dev)
+        self.state = self.cache.init()
+
+    # -- device step ----------------------------------------------------------
+
+    def _step(self, blocks, ws):
+        """``serve_step`` over the one store and cache, keyed by table slot
+        (0..T-1), not table id; the store rows are the global rows."""
+        (idx, valid), = blocks
+        B, T, P = idx.shape
+        tids = torch.arange(T, dtype=torch.int32, device=idx.device
+                            ).view(1, T, 1).expand(B, T, P)
+        grow = (self.offsets[tids.long()] + idx).reshape(-1)    # global row
+        pooled, miss, filled = serve_step(
+            tids.reshape(-1), idx.reshape(-1), valid.reshape(-1), grow, grow,
+            (B, T, P), (self.payload, self.scale, self.bias), self.sentinel,
+            self.cache, self.state, self.dim, self.cfg.use_kernels, ws)
+        if ws is not None:
+            self.telemetry.registry.inc("engine.filled_rows", filled)
+        return pooled, miss[None]
 
     def reference_pool(self, idx: np.ndarray,
                        valid: Optional[np.ndarray] = None) -> np.ndarray:

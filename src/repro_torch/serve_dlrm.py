@@ -373,8 +373,7 @@ def _main_host_plane(args) -> None:
     engine = build_trace_engine(spec, args.dim, seed=0,
                                 torch_device=args.device, shards=args.shards,
                                 layout=args.layout)
-    dev = (engine.devices[0] if isinstance(engine, ShardedServingEngine)
-           else engine.torch_device)
+    dev = engine.devices[0]
     model = DLRM(SCORING_ARCH, device=dev,
                  generator=torch.Generator().manual_seed(1))
     res = serve_host_plane(sched, engine, trace, args.batch, model=model,

@@ -366,7 +366,6 @@ def test_fill_over_unique_misses_equals_all_slot_fill(monkeypatch, layout):
     served results too, and ``fill_rows`` is handed the call's summed
     ``sm_ios`` rows over the shards. The last call all hits: it fills
     nothing and still advances each shard's clock."""
-    from repro_torch.runtime import sharded_engine
     dim, rows = 13, [40, 64, 24]
     tables = _tables(np.random.default_rng(5), rows, dim)
     cfg = teng.EngineConfig(hbm_cache_bytes=3 * 4 * (dim + 16), ways=4,
@@ -385,7 +384,7 @@ def test_fill_over_unique_misses_equals_all_slot_fill(monkeypatch, layout):
 
     def run(fill):
         with monkeypatch.context() as m:
-            m.setattr(sharded_engine, "fill_misses", fill)
+            m.setattr(teng, "fill_misses", fill)
             seen = spy_fill_rows(m)
             eng = ShardedServingEngine(tables, tio.DEVICES["nand_flash"], cfg,
                                        mesh=make_embed_mesh(2, "cpu"),

@@ -10,9 +10,11 @@ import torch
 import repro_torch.obs.tracing as tracing
 from repro_torch.core.columnar import ColumnarQueries
 from repro_torch.core.io_sim import DEVICES
+from repro_torch.launch import make_embed_mesh
 from repro_torch.obs import ObsConfig, make_telemetry, merge_telemetry
 from repro_torch.runtime.engine import (DeviceServingEngine, EngineConfig,
                                         dense_from_chunk)
+from repro_torch.runtime.sharded_engine import ShardedServingEngine
 
 PARENT = {"engine.serve": None, "engine.densify": "engine.serve",
           "engine.validate": "engine.serve", "engine.h2d": "engine.serve",
@@ -29,12 +31,23 @@ def _tables(seed=0, dim=8):
             for t in range(4)}
 
 
-def _engine(tables, telemetry=None):
-    eng = DeviceServingEngine(tables, DEVICES["nand_flash"],
-                              EngineConfig(hbm_cache_bytes=1 << 11, ways=4),
-                              torch_device="cpu")
+def _engine(tables, telemetry=None, shards=None):
+    """The single engine, or with ``shards`` a row-layout
+    ``ShardedServingEngine`` of that many CPU shards."""
+    cfg = EngineConfig(hbm_cache_bytes=1 << 11, ways=4)
+    if shards is None:
+        eng = DeviceServingEngine(tables, DEVICES["nand_flash"], cfg,
+                                  torch_device="cpu")
+    else:
+        eng = ShardedServingEngine(tables, DEVICES["nand_flash"], cfg,
+                                   mesh=make_embed_mesh(shards, "cpu"))
     eng.telemetry = telemetry
     return eng
+
+
+def _states(eng):
+    """The engine's cache states: one a shard, or the single engine's."""
+    return eng.state if isinstance(eng.state, list) else [eng.state]
 
 
 def _chunks(tables, n=4, queries=6, seed=1):
@@ -52,8 +65,8 @@ def _chunks(tables, n=4, queries=6, seed=1):
     return out
 
 
-def _wall_engine(tables):
-    return _engine(tables, make_telemetry(ObsConfig(wall_spans=True)))
+def _wall_engine(tables, shards=None):
+    return _engine(tables, make_telemetry(ObsConfig(wall_spans=True)), shards)
 
 
 def _by_call(events):
@@ -107,11 +120,15 @@ def test_serve_batch_alone_has_no_serve_or_densify_span():
     assert all(a["parent"] is None for n, _, _, a in spans if not n.startswith("step."))
 
 
-def test_wall_spans_change_nothing_served():
+SHARDS = pytest.mark.parametrize("shards", [None, 2], ids=["single", "sharded2"])
+
+
+@SHARDS
+def test_wall_spans_change_nothing_served(shards):
     """Pooled output, SM reads and time, the cache's state and its counters
     are bit-identical with the wall spans on and with no telemetry."""
     tables = _tables(3)
-    off, on = _engine(tables), _wall_engine(tables)
+    off, on = _engine(tables, shards=shards), _wall_engine(tables, shards)
     for ch in _chunks(tables, n=5, seed=7):
         a, b = off.serve_columnar(ch, 1e4), on.serve_columnar(ch, 1e4)
         for x, y in zip(a, b):
@@ -120,14 +137,16 @@ def test_wall_spans_change_nothing_served():
                                   len(tables))
     (pa, sa), (pb, sb) = off.serve_batch(idx, 0.0, valid), on.serve_batch(idx, 0.0, valid)
     assert np.array_equal(pa, pb) and sa == sb
-    assert off.state.keys() == on.state.keys()
-    for k in off.state:
-        assert torch.equal(off.state[k], on.state[k]), k
+    for so, sn in zip(_states(off), _states(on), strict=True):
+        assert so.keys() == sn.keys()
+        for k in so:
+            assert torch.equal(so[k], sn[k]), k
     assert off.stats == on.stats
 
 
+@SHARDS
 @pytest.mark.parametrize("flag", [None, True])
-def test_no_wall_recorder_reads_no_clock(monkeypatch, flag):
+def test_no_wall_recorder_reads_no_clock(monkeypatch, flag, shards):
     """With no telemetry, or the default handle (no ``wall``), the engine
     reads no clock and records no engine span."""
     class NoClock:
@@ -138,7 +157,7 @@ def test_no_wall_recorder_reads_no_clock(monkeypatch, flag):
     monkeypatch.setattr(tracing, "time", NoClock)
     tables = _tables()
     tel = make_telemetry(flag)
-    eng = _engine(tables, tel)
+    eng = _engine(tables, tel, shards)
     for ch in _chunks(tables, n=2):
         eng.serve_columnar(ch, 1e4)
     if tel is not None:
@@ -151,9 +170,12 @@ def test_no_wall_recorder_reads_no_clock(monkeypatch, flag):
         assert not {"engine.dim", "engine.row_pitch"} & set(tel.registry.gauges)
 
 
-def test_slot_counters_are_the_blocks():
+@SHARDS
+def test_slot_counters_are_the_blocks(shards):
+    """The counters count each call's block; the sharded engine records the
+    host spans and ``engine.step``, with no ``step.*`` children."""
     tables = _tables()
-    eng = _wall_engine(tables)
+    eng = _wall_engine(tables, shards)
     slots = keys = 0
     for ch in _chunks(tables, n=3, seed=5):
         idx, valid = dense_from_chunk(ch, eng.table_slot, len(tables))
@@ -163,6 +185,8 @@ def test_slot_counters_are_the_blocks():
     counters = eng.telemetry.registry.as_dict()["counters"]
     assert counters["engine.slots"] == slots
     assert counters["engine.valid_keys"] == keys < slots
+    names = {e[3] for e in eng.telemetry.wall.events}
+    assert names == {n for n in PARENT if shards is None or not n.startswith("step.")}
 
 
 def test_filled_rows_counter_is_the_calls_sm_ios():
