@@ -12,7 +12,10 @@ Phases, one JSON line each:
               the serving path's shapes plus edge cases, and the DLRM
               kernels at ``m1_batch``: 128 queries of the paper's M1 (7,808
               bags of 42 rows of 128 bytes from 16,777,216 rows; 327,936
-              probes into a 1,048,576 x 8 x 128 f32 cache), made on the card.
+              probes into a 1,048,576 x 8 x 128 f32 cache), made on the card;
+              ``densify`` bit for bit at M1's and M2's chunk shapes (32
+              queries over 61 and 450 tables, P 64), with keys out of range
+              counted, and at P 1, 2 and 4.
 4. main    -- the serving path (``repro_torch.serve_dlrm``: device serving
               engine + DLRM scoring) at the full ``DLRMArch()`` width: four
               batches of 32 queries, then the first batch again. The launch
@@ -39,8 +42,10 @@ trace_path -- the trace-driven serving path (``serve_dlrm.build_trace_engine``,
               version on that call's inputs: per-query ``sm_ios`` and
               ``sm_time_us`` and the cache state equal, pooled within the
               reference's columnar tolerance of each other and of
-              ``reference_pool``, each kernel launched once a batch (the
-              counters zeroed just before and read just after); (b) the
+              ``reference_pool``, each kernel (``densify`` included, whose
+              block, mask and count must equal the plain version's exactly)
+              launched once a batch (the counters zeroed just before and
+              read just after); (b) the
               median ``serve_columnar`` wall per batch for both engines in
               turns, ``dense_from_chunk``'s host ms, a profile of 8
               batches (each kernel once a batch), and each kernel's kernel,
@@ -59,7 +64,8 @@ sharded_path -- the sharded serving engine (``ShardedServingEngine`` through
               every kernel call shadowed by its plain version: per-query
               ``sm_ios`` and ``sm_time_us`` and each shard's cache state
               equal after every batch, pooled within the columnar tolerance
-              of ``reference_pool``, each kernel launched 8 times a batch;
+              of ``reference_pool``, the step's kernels launched 8 times a
+              batch and ``densify`` once (one block a distinct device);
               (b) both layouts at 1, 2, 4 and 8 shards beside the
               single-device engine: 1 shard equal to it in everything, every
               count's cold first batch equal to it in per-query ``sm_ios``;
@@ -76,8 +82,9 @@ host_plane -- the reference example's path (``examples/serve_dlrm.py``) at
               same user tables at D 128 on the card and a small DLRM
               scoring 50 items a chunk. (a) Analytic, then sampled at 240
               QPS with the update write stream and the §4.1 knobs, every
-              kernel call shadowed by its plain version, each kernel once a
-              chunk (counters zeroed just before, read just after); the
+              kernel call shadowed by its plain version (``densify``
+              included), each kernel once a chunk (counters zeroed just
+              before, read just after); the
               engine's pooled bags within the columnar tolerance of
               ``reference_pool``; write waves and GC pauses; a second
               sampled run of the same seed equal in every latency and
@@ -100,8 +107,9 @@ fleet_plane -- the fleet's device plane (``ClusterSim.run_device_plane``
               (b) Three hosts round robin, the last a 2-shard row-layout mesh
               slice with both shards on the card: kernel engines with
               telemetry (every kernel call shadowed by its plain version,
-              the counters zeroed just before and read just after, each
-              kernel once a chunk a shard), kernel engines without it, and
+              the counters zeroed just before and read just after, the
+              step's kernels once a chunk a shard and ``densify`` once a
+              chunk, the shards sharing the card), kernel engines without it, and
               ``use_kernels=False`` engines, every ``HostReport`` field and
               the fleet percentiles equal; each host's engine build time,
               store bytes and ``serve_columnar`` walls, and the merged
@@ -295,6 +303,11 @@ PROFILE_MARKS, PROFILE_MARK_CYCLES = 4096, 1_000  # device_profile's window mark
 # 61 user tables pooling 42 rows each, 128-byte rows (136 with scale and bias)
 M1_GATHER_POOL = dict(R=1 << 24, D=128, N=128 * 61, P=42)
 M1_CACHE_PROBE = dict(S=1 << 20, W=8, D=128, N=128 * 61 * 42)
+# densify at the benchmark's chunk shapes: 32 queries over M1's 61 tables
+# (pooling 42: 85,856 keys, P 64) and M2's 450 (pooling 25: 359,200 keys,
+# P 64), int64 keys as the trace carries them
+DENSIFY_CHUNKS = {"m1_chunk": dict(B=32, T=61, lo=20, hi=64),
+                  "m2_chunk": dict(B=32, T=450, lo=1, hi=49)}
 # trace_path: the zipf_steady archetype over the M1 inventory of the reference's
 # examples/serve_dlrm.py:75-81 (61 user tables, table_bytes 4e9), one row width
 TRACE_ARCHETYPE, TRACE_QUERIES, TRACE_BATCH, TRACE_DIM, TRACE_P = "zipf_steady", 512, 32, 128, 64
@@ -498,6 +511,64 @@ def cache_probe_cases(torch, np, rng):
     return [main, case("w32", 64, 32, 96, 500), tuple(two)]
 
 
+def densify_case(torch, np, rng, label, B, T, lo, hi, bad=False):
+    """(label, values, row_seg, seg_offsets, rows_per_table, P) on the card:
+    a chunk of B queries over T tables, each touching 90% of them with bags
+    of lo to hi keys (one of hi), int64 keys below each table's rows; with
+    ``bad`` a negative key, one at its table's rows and one past 2**31."""
+    rows = rng.integers(1, 2_000_000, T).astype(np.int64)
+    row_seg = np.full(B * T, -1, np.int32)
+    seg_rows = np.flatnonzero(rng.random(B * T) < 0.9)
+    row_seg[seg_rows] = np.arange(len(seg_rows), dtype=np.int32)
+    lens = rng.integers(lo, hi + 1, len(seg_rows))
+    lens[0] = hi
+    offsets = np.r_[0, np.cumsum(lens)].astype(np.int32)
+    limit = np.repeat(rows[seg_rows % T], lens)
+    values = (rng.random(len(limit)) * limit).astype(np.int64)
+    if bad:
+        values[[0, len(values) // 2]] = [-1, limit[len(values) // 2]]
+        values[-1] = 2 ** 31 + 5
+    return (label,) + tuple(torch.from_numpy(a).cuda() for a in (
+        values, row_seg, offsets, rows)) + (1 << (hi - 1).bit_length(),)
+
+
+def densify_cases(torch, np, rng):
+    """``densify`` at M1's and M2's chunk shapes (once with keys out of
+    range), and at P 1, 2 and 4, where a thread's slots span rows."""
+    cases = [densify_case(torch, np, rng, k, **v) for k, v in DENSIFY_CHUNKS.items()]
+    cases.append(densify_case(torch, np, rng, "m2_chunk_bad", **DENSIFY_CHUNKS["m2_chunk"],
+                              bad=True))
+    for hi in (1, 2, 3):
+        cases.append(densify_case(torch, np, rng, f"p{hi}", 5, 7, 0, hi, bad=True))
+    return cases
+
+
+def densify_bytes_ops(values, row_seg, offsets, rows, P):
+    """Each input byte read once, each slot written once (4 + 1 bytes); no
+    arithmetic."""
+    N = row_seg.shape[0]
+    nbytes = (values.numel() * values.element_size() + 4 * N + 4 * offsets.numel()
+              + 8 * rows.numel() + 5 * N * P + 4)
+    return nbytes, 0
+
+
+def densify_times(torch, timer, case, reps: int = 20) -> dict:
+    """Kernel and plain times of ``densify`` on one case, with its bound (no
+    PyTorch call builds a padded block from CSR arrays)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.densify import densify
+    _, values, row_seg, offsets, rows, P = case
+    out = {"shape": {"N": row_seg.shape[0], "P": P, "keys": values.numel(),
+                     "dtype": str(values.dtype)},
+           "ms": timer.ms(lambda: densify(values, row_seg, offsets, rows, P), reps),
+           "plain_ms": timer.ms(lambda: ref.densify_ref(values, row_seg, offsets, rows, P),
+                                reps),
+           "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound_ms(*densify_bytes_ops(values, row_seg, offsets,
+                                                                   rows, P))
+    return out
+
+
 def m1_gather_pool_case(torch, R, D, N, P):
     """``m1_batch`` for ``gather_pool``, made on the card from a seeded
     generator: N bags of P uniform rows of a uint8 store of R rows of D."""
@@ -670,13 +741,15 @@ def cache_probe_times(torch, timer, case, reps: int = 0) -> dict:
     return out
 
 
-def dlrm_kernel_times(torch, timer, gp_cases, cp_cases) -> dict:
+def dlrm_kernel_times(torch, timer, gp_cases, cp_cases, dn_cases) -> dict:
     """Phase 5's kernel times: each DLRM kernel at the path's shape (the
     first case) and at ``m1_batch`` (the last), what holds ``gather_pool``
-    there, and the timer's floor, a one-element ``zero_()`` timed the same
-    way."""
+    there, ``densify`` at M1's and M2's chunks, and the timer's floor, a
+    one-element ``zero_()`` timed the same way."""
     tiny = torch.zeros(1, device="cuda")
     return {"timer_floor_ms": timer.ms(lambda: tiny.zero_()),
+            "densify": {c[0]: densify_times(torch, timer, c) for c in dn_cases
+                        if c[0] in DENSIFY_CHUNKS},
             "gather_pool": {"path": gather_pool_times(torch, timer, gp_cases[0]),
                             "m1_batch": gather_pool_times(torch, timer, gp_cases[-1], 20),
                             "m1_batch_access": gather_pool_access_times(torch, timer,
@@ -758,13 +831,17 @@ def shadowed_dlrm_kernels(torch, ops, ref):
     """Wrap the DLRM kernels' entries in ``ops`` so that each kernel call also
     runs the plain version on the same inputs (no launch, so the counters
     do not move). Returns (restore, check, last): ``check()`` raises if any
-    call disagreed and returns the largest difference of each kernel;
-    ``last`` holds each kernel's inputs of its last call, the probe's cache
-    state cloned (the fill updates it in place; nothing writes the store)."""
+    call disagreed and returns the largest difference of each kernel (for
+    ``densify``, the most slots and counts of one call that differ: its
+    block, mask and count are compared exactly); ``last`` holds each
+    kernel's inputs of its last call, the probe's cache state cloned (the
+    fill updates it in place; nothing writes the store)."""
     gp_call, cp_call = ops.embedding_gather_pool, ops.row_cache_probe
+    dn_call = ops.csr_densify
     last = {}
     worst = {"gather_pool": torch.zeros((), device="cuda"),
-             "cache_probe": torch.zeros((), device="cuda")}
+             "cache_probe": torch.zeros((), device="cuda"),
+             "densify": torch.zeros((), device="cuda")}
     bad = torch.zeros((), dtype=torch.bool, device="cuda")
 
     def gather_pool(payload, scale, bias, indices, *, use_kernel=True):
@@ -788,8 +865,22 @@ def shadowed_dlrm_kernels(torch, ops, ref):
             bad.logical_or_(~torch.isclose(vals, vals_ref, **CACHE_PROBE_TOL).all())
         return vals, hit
 
+    def csr_densify(values, row_seg, seg_offsets, rows_per_table, P, *, use_kernel=True):
+        out = dn_call(values, row_seg, seg_offsets, rows_per_table, P, use_kernel=use_kernel)
+        if use_kernel:
+            last["densify"] = (values, row_seg, seg_offsets, rows_per_table, P)
+            want = ref.densify_ref(values, row_seg, seg_offsets, rows_per_table, P)
+            if any(g.dtype != w.dtype or g.shape != w.shape for g, w in zip(out, want)):
+                raise AssertionError("densify: the kernel's outputs are not the plain "
+                                     "version's dtypes and shapes")
+            differ = sum((g != w).sum() for g, w in zip(out, want))
+            torch.maximum(worst["densify"], differ.float(), out=worst["densify"])
+            bad.logical_or_(differ > 0)
+        return out
+
     def restore():
         ops.embedding_gather_pool, ops.row_cache_probe = gp_call, cp_call
+        ops.csr_densify = dn_call
 
     def check():
         if bool(bad):
@@ -797,11 +888,12 @@ def shadowed_dlrm_kernels(torch, ops, ref):
                                  f"version: {worst}")
         return {k: float(v) for k, v in worst.items()}
     ops.embedding_gather_pool, ops.row_cache_probe = gather_pool, cache_probe
+    ops.csr_densify = csr_densify
     return restore, check, last
 
 
 def trace_kernel_times(torch, timer, got) -> dict:
-    """Kernel, plain and library times of both DLRM kernels on the inputs
+    """Kernel, plain and library times of the DLRM kernels on the inputs
     one batch of the trace path gave them (``got``), with their bounds, and two probes
     of what holds ``gather_pool`` there: the same call with every sentinel
     slot (a hit or a padded position) sent to a random one of the store's
@@ -825,7 +917,8 @@ def trace_kernel_times(torch, timer, got) -> dict:
                 "all_sentinel_ms": timer.ms(lambda: gather_pool(payload, scale, bias, same),
                                             20)},
             "cache_probe": cache_probe_times(torch, timer, ("trace_path", *got["cache_probe"]),
-                                             20)}
+                                             20),
+            "densify": densify_times(torch, timer, ("trace_path", *got["densify"]))}
 
 
 def pool_gap(np, a, b) -> float:
@@ -847,7 +940,7 @@ def trace_path(torch, np, timer, smi) -> dict:
     from repro_torch.workloads import TraceStream, build_trace
 
     B, D, name = TRACE_BATCH, TRACE_DIM, TRACE_ARCHETYPE
-    kernel_names = ("gather_pool", "cache_probe")
+    kernel_names = ("gather_pool", "cache_probe", "densify")
     t_phase = time.perf_counter()
     spec = serve_dlrm.m1_spec(name, queries=TRACE_QUERIES, table_bytes=TRACE_TABLE_BYTES)
     t0 = time.perf_counter()
@@ -972,7 +1065,8 @@ def trace_path(torch, np, timer, smi) -> dict:
               "gather_pool": {"N": B * T, "P": TRACE_P, "D": D,
                               "R": int(kern.payload.shape[0])},
               "cache_probe": {"N": B * T * TRACE_P, "S": kern.cache.geo.num_sets,
-                              "W": kern.cache.geo.ways, "D": D}},
+                              "W": kern.cache.geo.ways, "D": D},
+              "densify": {"N": B * T, "P": TRACE_P}},
           "profile": prof})
 
     # (c) the 4e8 cut on the card and on the CPU, tables made with numpy
@@ -1064,11 +1158,16 @@ def sharded_path(torch, np, smi) -> dict:
     from repro_torch.workloads import build_trace
 
     B, D, name = TRACE_BATCH, TRACE_DIM, TRACE_ARCHETYPE
-    kernel_names = ("gather_pool", "cache_probe")
+    kernel_names = ("gather_pool", "cache_probe", "densify")
     t_phase = time.perf_counter()
     spec = serve_dlrm.m1_spec(name, queries=TRACE_QUERIES, table_bytes=TRACE_TABLE_BYTES)
     chunks = list(build_trace(spec).chunks(B))
     shared = "cuda:0"
+
+    def per_call(eng, n):
+        """Launches a batch: the step's kernels once a shard, ``densify``
+        once a distinct device (here the one card)."""
+        return {"gather_pool": n, "cache_probe": n, "densify": len(set(eng.devices))}
 
     def engine(n, layout, use_kernels=True):
         return serve_dlrm.build_trace_engine(
@@ -1128,9 +1227,10 @@ def sharded_path(torch, np, smi) -> dict:
                               float(np.abs(pk - want).max()))
             torch.cuda.synchronize()
             counts = ops.launch_counts()
-            if any(counts[k] != n * len(chunks) for k in kernel_names):
+            want = per_call(kern, n)
+            if any(counts[k] != want[k] * len(chunks) for k in kernel_names):
                 raise AssertionError(f"sharded path ({layout}): {counts} launches over "
-                                     f"{len(chunks)} batches, want {n} of each a batch")
+                                     f"{len(chunks)} batches, want {want} a batch")
             for k in kernel_names:
                 launches[k] += counts[k]
             per_layout[layout] = {"launches": {k: counts[k] for k in kernel_names},
@@ -1167,10 +1267,10 @@ def sharded_path(torch, np, smi) -> dict:
         prof = device_profile(torch, lambda: [eng.serve_columnar(ch.columnar, TRACE_BG_IOPS)
                                               for ch in profiled],
                               SHARD_PROFILED, named=kernel_names)
-        named = prof["ops_named"]
-        if any(named[k] != n for k in kernel_names):
+        named, want = prof["ops_named"], per_call(eng, n)
+        if any(named[k] != want[k] for k in kernel_names):
             raise AssertionError(f"{n} shards: profile shows {named} kernels a batch, "
-                                 f"want {n} of each")
+                                 f"want {want}")
         wall = statistics.median(walls[2:])           # the first batches warm up
         row = {"shards": n, "hit_rate": hit_rate,
                "sm_ios": int(sum(int(o[2].sum()) for o in out)),
@@ -1280,7 +1380,7 @@ def host_plane(torch, np, smi) -> dict:
     from repro_torch.workloads import build_trace
 
     B, D, name = TRACE_BATCH, TRACE_DIM, TRACE_ARCHETYPE
-    kernel_names = ("gather_pool", "cache_probe")
+    kernel_names = ("gather_pool", "cache_probe", "densify")
     t_phase = time.perf_counter()
     specs = {mode: serve_dlrm.host_plane_spec(name, queries=HOST_QUERIES,
                                               table_bytes=TRACE_TABLE_BYTES,
@@ -1503,7 +1603,7 @@ def fleet_plane(torch, np, smi, single) -> dict:
     from repro_torch.workloads import build_trace
 
     B, D, name = TRACE_BATCH, TRACE_DIM, TRACE_ARCHETYPE
-    kernel_names = ("gather_pool", "cache_probe")
+    kernel_names = ("gather_pool", "cache_probe", "densify")
     t_phase = time.perf_counter()
     spec = serve_dlrm.m1_spec(name, queries=TRACE_QUERIES, table_bytes=TRACE_TABLE_BYTES)
     trace = build_trace(spec)
@@ -1596,10 +1696,13 @@ def fleet_plane(torch, np, smi, single) -> dict:
             if key(other) != key(kern_tel):
                 raise AssertionError(f"fleet: the kernel engines with telemetry and "
                                      f"the {label} differ: {key(kern_tel)} {key(other)}")
+        # the step's kernels once a chunk a shard, densify once a chunk a
+        # distinct device: every host's shards share the one card
+        calls = sum(-(-h.queries // B) for h in kern.hosts)
         chunks = sum(-(-h.queries // B) * h.mesh_devices for h in kern.hosts)
-        if any(launches[k] != chunks for k in kernel_names):
-            raise AssertionError(f"fleet: {launches} launches, want each DLRM kernel "
-                                 f"once a chunk a shard ({chunks})")
+        want = {"gather_pool": chunks, "cache_probe": chunks, "densify": calls}
+        if any(launches[k] != want[k] for k in kernel_names):
+            raise AssertionError(f"fleet: {launches} launches, want {want}")
         by = {h.name: h for h in kern.hosts}
         mesh = by[f"h{FLEET_HOSTS - 1}"]
         reg = kern_tel.telemetry.registry
@@ -1616,7 +1719,7 @@ def fleet_plane(torch, np, smi, single) -> dict:
                            "(the engines' 7,281 x 8 cache)",
               "reports": [dataclasses.asdict(h) for h in kern.hosts],
               "fleet_p50_p95_p99_p999_us": key(kern)[1],
-              "launches": launches, "chunks_x_shards": chunks,
+              "launches": launches, "chunks_x_shards": chunks, "chunks": calls,
               "kernel_vs_plain_per_call": kernel_err,
               "engines_kernels": kern_hosts, "engines_plain": plain_hosts,
               "run_s": {"kernels_telemetry_shadowed": tel_s, "kernels": kern_s,
@@ -3125,6 +3228,7 @@ def main() -> int:
     from repro_torch import serve_dlrm
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.cache_probe import cache_probe
+    from repro_torch.kernels.densify import densify
     from repro_torch.kernels.gather_pool import gather_pool
     from repro_torch.models.dlrm import DLRMArch
     from repro_torch.core.io_sim import DEVICES
@@ -3179,14 +3283,25 @@ def main() -> int:
     data = cp_cases[2][3]
     if hit.tolist() != [1, 1, 0] or not torch.equal(vals[0], data[2, 1] + data[2, 3]):
         raise AssertionError("cache_probe two_ways: matching ways not summed")
+    dn_cases = densify_cases(torch, np, rng)
+    dn_bad = {}
+    for label, *args in dn_cases:
+        got = densify(*args)
+        want = ref.densify_ref(*args)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("idx", "valid", "bad"), got, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"densify {label}: {name} differs from the plain version")
+        dn_bad[label] = int(got[2])
     emit({"phase": "kernels_vs_plain",
           "gather_pool_cases": [c[0] for c in gp_cases],
           "cache_probe_cases": [c[0] for c in cp_cases],
+          "densify_cases_bad_keys": dn_bad,
           "max_abs_err": err})
     timer = Timer(torch)
     if sys.argv[1:] == ["--kernels"]:          # phases 1-3 and the kernel times only
         emit({"phase": "timing", "card": smi, **dlrm_kernel_times(torch, timer, gp_cases,
-                                                                  cp_cases)})
+                                                                  cp_cases, dn_cases)})
         return 0
 
     # 4. the serving path at full DLRMArch() width, on the card and the CPU
@@ -3249,7 +3364,7 @@ def main() -> int:
           "setup_s": setup_s, "path_s": path_s})
 
     # 5. timing
-    times = dlrm_kernel_times(torch, timer, gp_cases, cp_cases)
+    times = dlrm_kernel_times(torch, timer, gp_cases, cp_cases, dn_cases)
     engine_plain = DeviceServingEngine(
         {i: model.tables[i] for i in range(len(arch.user_tables))},
         DEVICES["nand_flash"], EngineConfig(use_kernels=False),
@@ -3285,7 +3400,7 @@ def main() -> int:
           "launches_per_batch": {k: launches[k] / len(traffic)
                                  for k in ("gather_pool", "cache_probe")}})
 
-    del gp_cases, cp_cases, probed             # m1_batch holds about 6.5 GB
+    del gp_cases, cp_cases, dn_cases, probed   # m1_batch holds about 6.5 GB
     del model, engine, model_cpu, engine_cpu, engine_plain
     torch.cuda.empty_cache()
 
@@ -3356,6 +3471,27 @@ def main() -> int:
          "device_us_per_call_in_step": device_us["cache_probe"],
          "device_us_per_call_trace_path": tr["device_us"]["cache_probe"],
          "device_us_per_call_sharded_path": {lay: us["cache_probe"]
+                                             for lay, us in sh["device_us"].items()}},
+        {"name": "densify", "route": "cuda",
+         "source": "src/repro_torch/csrc/densify.cu",
+         "replaces": "src/repro/runtime/engine.py (dense_from_chunk, the host's densify)",
+         "launches": tr["launches"]["densify"] + sh["launches"]["densify"]
+         + hp["launches"]["densify"] + fl["launches"]["densify"],
+         "launches_by_path": {"trace_path": tr["launches"]["densify"],
+                              "sharded_path": sh["launches"]["densify"],
+                              "host_plane": hp["launches"]["densify"],
+                              "fleet_plane": fl["launches"]["densify"]},
+         "differing_per_call": max(tr["err"]["densify"], sh["err"]["densify"],
+                                   hp["err"]["densify"], fl["err"]["densify"]),
+         "chunks": {k: {"ms": t["ms"]["median"], "plain_ms": t["plain_ms"]["median"],
+                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}
+                    for k, t in times["densify"].items()},
+         "trace_path": {"ms": tr["times"]["densify"]["ms"]["median"],
+                        "plain_ms": tr["times"]["densify"]["plain_ms"]["median"],
+                        "bound_ms": tr["times"]["densify"]["bound_ms"]},
+         "timer_floor_ms": times["timer_floor_ms"]["median"],
+         "device_us_per_call_trace_path": tr["device_us"]["densify"],
+         "device_us_per_call_sharded_path": {lay: us["densify"]
                                              for lay, us in sh["device_us"].items()}},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",

@@ -20,7 +20,7 @@ are then pure slicing: each table's share of a query range ``[qs, qe)`` is
 one contiguous span of the grouped arrays (found by ``searchsorted``), so
 per-chunk per-table grouping costs O(tables), not O(batch x tables) Python.
 ``DeviceServingEngine`` reads the chunk's range of the CSR arrays directly
-(``runtime/engine.py`` ``dense_from_chunk``).
+(``runtime/engine.py`` ``chunk_segments``).
 
 ``requests()`` materializes the dict-of-arrays view once (arrays are views
 into ``values``) — the compatibility adapter for the dict entry points and

@@ -2,13 +2,14 @@
 
 Each kernel is an operator of the ``repro_torch`` library
 (``torch.ops.repro_torch.gather_pool``, ``cache_probe``, ``flash_decode``,
-``flash_decode_lse``), registered with the dispatcher at the C++ level
-(``torch.library.Library``): a CPU tensor takes the kernel's plain version
+``flash_decode_lse``, ``densify``), registered with the dispatcher at the
+C++ level (``torch.library.Library``): a CPU tensor takes the kernel's plain version
 (``ref.py``); a CUDA tensor goes to the CUDA kernel, which launches or
 raises -- nothing falls back; a fake tensor (``FakeTensorMode``, the launch
 tooling's traces) takes the registered fake implementation, which gives the
-outputs' shapes and dtypes and runs nothing. Each operator has a FLOP
-formula (``torch.utils.flop_counter``), so a traced step counts its work.
+outputs' shapes and dtypes and runs nothing. Each operator that computes
+has a FLOP formula (``torch.utils.flop_counter``), so a traced step counts
+its work; ``densify`` only moves keys.
 ``use_kernel=False`` selects the plain version explicitly on any device.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import cache_probe as _cache_probe
+from repro_torch.kernels import densify as _densify
 from repro_torch.kernels import flash_decode as _flash_decode
 from repro_torch.kernels import gather_pool as _gather_pool
 from repro_torch.kernels import ref
@@ -29,6 +31,8 @@ _LIB.define("cache_probe(Tensor tag_table, Tensor tag_row, Tensor data, Tensor q
             "Tensor q_row, Tensor sets) -> (Tensor, Tensor)")
 _LIB.define("flash_decode(Tensor q, Tensor k, Tensor v, Tensor kv_len) -> Tensor")
 _LIB.define("flash_decode_lse(Tensor q, Tensor k, Tensor v, Tensor kv_len) -> (Tensor, Tensor)")
+_LIB.define("densify(Tensor values, Tensor row_seg, Tensor seg_offsets, "
+            "Tensor rows_per_table, int P) -> (Tensor, Tensor, Tensor)")
 
 for _name, _plain, _kernel in (
         ("gather_pool", ref.gather_pool_ref, _gather_pool.gather_pool),
@@ -36,7 +40,8 @@ for _name, _plain, _kernel in (
         ("flash_decode", ref.flash_decode_ref, _flash_decode.flash_decode),
         ("flash_decode_lse",
          lambda q, k, v, kv_len: ref.flash_decode_ref(q, k, v, kv_len, return_lse=True),
-         lambda q, k, v, kv_len: _flash_decode.flash_decode(q, k, v, kv_len, return_lse=True))):
+         lambda q, k, v, kv_len: _flash_decode.flash_decode(q, k, v, kv_len, return_lse=True)),
+        ("densify", ref.densify_ref, _densify.densify)):
     _LIB.impl(_name, _plain, "CPU")
     _LIB.impl(_name, _kernel, "CUDA")
 
@@ -62,6 +67,14 @@ def _flash_decode_fake(q, k, v, kv_len):
 def _flash_decode_lse_fake(q, k, v, kv_len):
     return (q.new_empty(q.shape, dtype=torch.float32),
             q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+@torch.library.register_fake("repro_torch::densify", lib=_LIB)
+def _densify_fake(values, row_seg, seg_offsets, rows_per_table, P):
+    n = row_seg.shape[0]
+    return (row_seg.new_empty((n, P), dtype=torch.int32),
+            row_seg.new_empty((n, P), dtype=torch.bool),
+            row_seg.new_empty((), dtype=torch.int32))
 
 
 # FLOP formulas, from shapes: a multiply-add counts two
@@ -113,8 +126,20 @@ def decode_attention(q, k, v, kv_len, *, use_kernel: bool = True, return_lse: bo
     return torch.ops.repro_torch.flash_decode(q, k, v, kv_len)
 
 
+def csr_densify(values, row_seg, seg_offsets, rows_per_table, P: int, *,
+                use_kernel: bool = True):
+    """A CSR chunk's padded key block: (idx [N, P] int32, valid [N, P] bool,
+    bad [] int32, the keys outside their tables). values [K] int64;
+    row_seg [N] int32, the segment each block row holds (-1: none);
+    seg_offsets [S+1] int32 from 0; rows_per_table [T] int64; P a power of
+    two for the kernel."""
+    if not use_kernel:
+        return ref.densify_ref(values, row_seg, seg_offsets, rows_per_table, P)
+    return torch.ops.repro_torch.densify(values, row_seg, seg_offsets, rows_per_table, P)
+
+
 _WRAPPERS = {"gather_pool": _gather_pool, "cache_probe": _cache_probe,
-             "flash_decode": _flash_decode}
+             "flash_decode": _flash_decode, "densify": _densify}
 
 
 def launch_counts() -> Dict[str, int]:

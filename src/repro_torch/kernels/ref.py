@@ -35,6 +35,31 @@ def cache_probe_ref(tag_table, tag_row, data, q_table, q_row, sets):
     return values, hit.to(torch.int32)
 
 
+def densify_ref(values: torch.Tensor, row_seg: torch.Tensor,
+                seg_offsets: torch.Tensor, rows_per_table: torch.Tensor, P: int):
+    """values [K] int64, a chunk's keys in CSR order; row_seg [N] int32,
+    the segment row r holds (-1: none); seg_offsets [S+1] int32, each
+    segment's keys from 0; rows_per_table [T] int64. Returns (idx [N, P]
+    int32: row r's keys, then zeros; valid [N, P] bool; bad [] int32: the
+    keys v of row r with v < 0 or v >= rows_per_table[r % T], each compared
+    as an int64 before it is narrowed to int32)."""
+    N, T = row_seg.shape[0], rows_per_table.shape[0]
+    off = seg_offsets.long()
+    none = off.new_zeros(1)
+    seg = row_seg.long()
+    seg = torch.where(seg >= 0, seg, off.shape[0] - 1)    # S: no segment, no keys
+    start = torch.cat([off[:-1], none])[seg]
+    length = torch.cat([off[1:] - off[:-1], none])[seg]
+    pos = torch.arange(P, device=values.device)
+    valid = pos < length[:, None]
+    # a padded slot reads the zero appended past the keys: no masked gather
+    src = torch.where(valid, start[:, None] + pos, values.shape[0])
+    keys = torch.cat([values, values.new_zeros(1)])[src]
+    limit = rows_per_table[torch.arange(N, device=values.device) % T][:, None]
+    bad = (valid & ((keys < 0) | (keys >= limit))).sum().to(torch.int32)
+    return keys.to(torch.int32), valid, bad
+
+
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, return_lse: bool = False):
     """q [B, H, hd]; k/v [B, S, K, hd]; kv_len [B]. Returns [B, H, hd] f32,

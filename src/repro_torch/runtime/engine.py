@@ -21,10 +21,11 @@ analytic ``IOEngine`` prices each query's IO under Eq. 3.
 Both engines share this module's code. The step over one store and one
 cache is ``serve_step``: ``DeviceServingEngine`` runs it once over its one
 store, ``ShardedServingEngine`` once a shard. The host path is
-``ServingEngineBase``'s: validation (padded positions zeroed once, on the
-host), the copies in and out, the accounting and the entries
-``serve_batch`` and ``serve_columnar``. An engine keeps its store layout,
-its ``_step``, its oracle ``reference_pool`` and ``hit_rate``.
+``ServingEngineBase``'s: the entries ``serve_batch`` and
+``serve_columnar``, each with its validation and copies in, and their
+shared tail ``_finish`` (the step, the copies out, the accounting). An
+engine keeps its store layout, its ``_step``, its oracle
+``reference_pool`` and ``hit_rate``.
 
 The store and the cache hold each row at a pitch (``row_pitch``): ``dim``
 rounded up to a multiple of ``ROW_ALIGN`` elements, so both kernels move
@@ -34,19 +35,29 @@ cache; the pools drop them, so every result is ``dim`` wide, each column
 summed in the same order as at ``dim``. The cache is sized and the SM priced
 by ``row_bytes(dim)``, never by the pitch.
 
-``serve_columnar`` is the trace plane's entry: a columnar (CSR) chunk of a
-workload trace is densified on the host (``dense_from_chunk``, one
-vectorized pass over the trace's CSR arrays, no loop over tables) into a
-ragged, padded ``[B, T, P]`` block with a valid mask and served as above.
+``serve_batch`` takes a dense ``[B, T, P]`` block and validates it on the
+host (padded positions zeroed once) before copying it in.
+``serve_columnar`` is the trace plane's entry and builds the block on the
+card: the host does O(segments) work over the chunk's range of the trace's
+CSR arrays (``chunk_segments``: table ids to slots, each segment's block
+row; ``block_inputs``), copies the keys as int64 and one int32
+buffer of row segments and offsets to each distinct device, and the
+``densify`` kernel (``ops.csr_densify``) writes the ragged, padded block,
+its valid mask and the count of keys outside their tables. One read of the
+count raises before the step. ``dense_from_chunk`` builds the same block
+on the host: the reference the tests hold the card's block to.
 
 With a ``telemetry`` handle whose ``wall`` recorder is on
 (``ObsConfig(wall_spans=True)``), each call records wall-clock spans on
 the clock of ``torch.profiler``'s device records: ``engine.serve`` >
-``engine.densify``, ``engine.validate``, ``engine.h2d``, ``engine.step``
+``engine.densify``, ``engine.h2d``, ``engine.validate``, ``engine.step``
 (> ``step.probe``, ``step.hit_pool``, ``step.miss_pool``, ``step.dedupe``,
-``step.fill``), ``engine.d2h``, ``engine.account``; and the counters
-``engine.slots`` (B*T*P), ``engine.valid_keys`` and ``engine.filled_rows``
-(the unique misses the fill dequantized); it sets the gauges
+``step.fill``), ``engine.d2h``, ``engine.account`` (``serve_batch``:
+``engine.validate`` before ``engine.h2d``, no ``engine.serve`` or
+``engine.densify``); and the counters ``engine.slots`` (B*T*P),
+``engine.valid_keys``, ``engine.h2d_bytes`` (the bytes copied in) and
+``engine.filled_rows`` (the unique misses the fill dequantized); it sets
+the gauges
 ``engine.dim`` and ``engine.row_pitch`` (which launch plans ran) once on
 each registry it serves into. The sharded engine records the same less the
 ``step.*`` spans and ``engine.filled_rows``. Without it an engine reads no
@@ -55,7 +66,7 @@ clock, and its registry holds what the reference's does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -201,33 +212,32 @@ def serve_step(tables: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor,
     return pooled_hit + pooled_miss, io_mask.reshape(B, T, P).sum(dim=2), filled
 
 
-def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
-                     num_tables: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Columnar (CSR) chunk -> dense ``[B, T, P]`` index block + valid mask.
+class ChunkSegments(NamedTuple):
+    """A columnar chunk's segments as the device block needs them."""
+    n_queries: int        # B
+    P: int                # the block's width: the longest bag, a power of two
+    rows: np.ndarray      # [S] int64: each segment's block row, query * T + slot
+    offsets: np.ndarray   # [S+1] int64: the segments' keys in the parent's values
+    values: np.ndarray    # [K]: the chunk's keys, a view of the parent's values
 
-    ``P`` is the chunk's max pooling length rounded up to a power of two
-    (few distinct shapes across chunks); absent/padded positions get index 0
-    with ``valid=False`` -- the device step routes them to the zero sentinel
-    row so they contribute nothing and cost no IO.
 
-    One vectorized numpy pass on the host over the parent trace's own CSR
-    arrays, with no loop over tables: the chunk's queries own one
-    contiguous range of segments and one of keys. The keys are laid out
-    segment-major in an ``[S, P]`` block, each bag a prefix of its row in
-    CSR order (one boolean-mask store), and the rows are then scattered to
-    their ``query * T + slot`` rows of the block. Segments of one query
-    carry distinct table ids, so no two land on one row. A table id that
-    ``table_slot`` lacks raises ``KeyError``, a slot outside
-    ``[0, num_tables)`` ``IndexError``. Equal bit for bit to the
-    reference's per-table loop.
+def chunk_segments(chunk: ColumnarChunk, table_slot: Dict[int, int],
+                   num_tables: int) -> ChunkSegments:
+    """The chunk's range of its parent trace's CSR arrays, with each
+    segment's row of the ``[B * T, P]`` block, in O(segments) host work.
+
+    The chunk's queries own one contiguous range of segments and one of
+    keys. ``P`` is the chunk's longest bag rounded up to a power of two (few
+    distinct shapes across chunks). Table ids map to slots through one
+    ``searchsorted`` over the sorted ids: an id that ``table_slot`` lacks
+    raises ``KeyError``, a slot outside ``[0, num_tables)`` ``IndexError``.
+    Segments of one query carry distinct table ids, so no two share a row.
     """
     p, qs, B = chunk.parent, chunk.start, chunk.n_queries
     qseg = p.query_seg[qs:qs + B + 1]
     s0, s1 = int(qseg[0]), int(qseg[-1])
     soff = p.seg_offsets[s0:s1 + 1]
-    lens = np.diff(soff)
-    P = 1 << (int(lens.max(initial=1)) - 1).bit_length()
-    # table id -> slot for every segment: one searchsorted over sorted ids
+    P = 1 << (int(np.diff(soff).max(initial=1)) - 1).bit_length()
     tids = p.seg_table[s0:s1]
     ids = np.fromiter(table_slot, np.int64, len(table_slot))
     slots = np.fromiter(table_slot.values(), np.int64, len(table_slot))
@@ -241,15 +251,51 @@ def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
     seg_slot = slots[at]
     if len(seg_slot) and not 0 <= seg_slot.min() <= seg_slot.max() < num_tables:
         raise IndexError(f"table slot out of range [0, {num_tables})")
-    row = (np.repeat(np.arange(B, dtype=np.int64), np.diff(qseg)) * num_tables
-           + seg_slot)
+    rows = (np.repeat(np.arange(B, dtype=np.int64), np.diff(qseg)) * num_tables
+            + seg_slot)
+    return ChunkSegments(B, P, rows, soff, p.values[int(soff[0]):int(soff[-1])])
+
+
+def block_inputs(seg: ChunkSegments, num_tables: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """What ``ops.csr_densify`` builds ``seg``'s block from: the chunk's keys,
+    contiguous and int64 (the kernel's one key width; narrower keys are
+    widened), and one int32 buffer of the B*T block rows' segments
+    (-1: none) then the S+1 segment offsets from the chunk's first key."""
+    values = np.ascontiguousarray(seg.values, dtype=np.int64)
+    n, S = seg.n_queries * num_tables, len(seg.rows)
+    meta = np.empty(n + S + 1, np.int32)
+    meta[:n] = -1
+    meta[seg.rows] = np.arange(S, dtype=np.int32)
+    meta[n:] = seg.offsets - seg.offsets[0]
+    return values, meta
+
+
+def dense_from_chunk(chunk: ColumnarChunk, table_slot: Dict[int, int],
+                     num_tables: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Columnar (CSR) chunk -> dense ``[B, T, P]`` index block + valid mask,
+    on the host: the block ``serve_columnar`` builds on the card, and the
+    reference the tests hold that block to.
+
+    Absent/padded positions get index 0 with ``valid=False`` -- the device
+    step routes them to the zero sentinel row so they contribute nothing
+    and cost no IO. One vectorized numpy pass over ``chunk_segments``, with
+    no loop over tables: the keys are laid out segment-major in an ``[S,
+    P]`` block, each bag a prefix of its row in CSR order (one boolean-mask
+    store), and the rows are then scattered to their ``query * T + slot``
+    rows of the block. Raises as ``chunk_segments`` does. Equal bit for bit
+    to the reference's per-table loop.
+    """
+    seg = chunk_segments(chunk, table_slot, num_tables)
+    B, P = seg.n_queries, seg.P
+    lens = np.diff(seg.offsets)
     seg_valid = np.arange(P, dtype=np.int32) < lens.astype(np.int32)[:, None]
     seg_idx = np.zeros((len(lens), P), np.int32)
-    seg_idx[seg_valid] = p.values[int(soff[0]):int(soff[-1])]
+    seg_idx[seg_valid] = seg.values
     idx = np.zeros((B * num_tables, P), np.int32)
     valid = np.zeros((B * num_tables, P), bool)
-    idx[row] = seg_idx
-    valid[row] = seg_valid
+    idx[seg.rows] = seg_idx
+    valid[seg.rows] = seg_valid
     return (idx.reshape(B, num_tables, P),
             valid.reshape(B, num_tables, P))
 
@@ -265,10 +311,10 @@ class EngineConfig:
 
 
 class ServingEngineBase:
-    """The host path both engines share: validation, the copies in and out,
-    the Eq. 3 accounting, the wall spans and the entries ``serve_batch`` and
-    ``serve_columnar``. A subclass builds its store and caches on
-    ``devices`` and supplies ``_step``."""
+    """The host path both engines share: the entries ``serve_batch`` and
+    ``serve_columnar`` (each with its validation and copies in), the copies
+    out, the Eq. 3 accounting and the wall spans. A subclass builds its
+    store and caches on ``devices`` and supplies ``_step``."""
 
     devices: Tuple[torch.device, ...]
 
@@ -296,6 +342,8 @@ class ServingEngineBase:
         self.telemetry = None            # obs handle; None = bit-invisible
         self._wall_calls = 0             # calls served with wall spans on
         self._gauged = None              # the registry given the width gauges
+        self._rows_on: Dict[torch.device, torch.Tensor] = {}   # rows_per_table
+        self._count_host: Optional[torch.Tensor] = None        # pinned, on a card
 
     def _step(self, blocks: List[Tuple[torch.Tensor, torch.Tensor]],
               ws: Optional[WallSpans]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -345,24 +393,76 @@ class ServingEngineBase:
         """Serve a columnar (CSR) chunk through the device step. Returns
         ``(pooled [B, T, dim] f32, sm_time_us [B] f64, sm_ios [B] i64)`` with
         T in ``table_ids`` order (tables a query does not touch pool to
-        zero)."""
+        zero).
+
+        The host does O(segments) work (``chunk_segments``); the chunk's
+        keys, as int64, and two int32 words a segment are copied
+        to each distinct device, where ``ops.csr_densify`` builds the
+        padded ``[B, T, P]`` block (``dense_from_chunk``'s, bit for bit) and
+        counts the keys outside their tables. One read of that count raises
+        ``ValueError`` before the step, so a bad chunk never reaches the
+        cache."""
         if chunk.n_queries == 0:
             return self._empty()
         ws = self._wall()
         if ws is not None:
             ws.open("engine.serve")
-        idx, valid = dense_from_chunk(chunk, self.table_slot,
-                                      len(self.table_ids))
+        T = len(self.table_ids)
+        seg = chunk_segments(chunk, self.table_slot, T)
+        B, P = seg.n_queries, seg.P
+        values, meta = block_inputs(seg, T)
         if ws is not None:
             ws.lap("engine.densify")
-        out = self._serve_block(idx, bg_iops, valid, ws)
+        values_t, meta_t = torch.from_numpy(values), torch.from_numpy(meta)
+        copies = {d: (values_t.to(d), meta_t.to(d))
+                  for d in dict.fromkeys(self.devices)}
+        if ws is not None:
+            self.telemetry.registry.inc("engine.h2d_bytes",
+                                        len(copies) * (values.nbytes + meta.nbytes))
+            ws.lap("engine.h2d")
+        blocks, bad = {}, {}
+        for d, (v, m) in copies.items():
+            idx, valid, bad[d] = ops.csr_densify(
+                v, m[:B * T], m[B * T:], self._table_rows(d), P,
+                use_kernel=self.cfg.use_kernels)
+            blocks[d] = (idx.view(B, T, P), valid.view(B, T, P))
+        if self._read_count(bad[self.devices[0]]):
+            raise ValueError("row index out of range")
+        if ws is not None:
+            reg = self.telemetry.registry
+            reg.inc("engine.slots", B * T * P)
+            reg.inc("engine.valid_keys", len(values))
+            ws.lap("engine.validate")
+        out = self._finish([blocks[d] for d in self.devices], bg_iops, ws)
         if ws is not None:
             ws.close()
         return out
 
+    def _table_rows(self, device: torch.device) -> torch.Tensor:
+        """``rows_per_table`` as an int64 tensor on ``device``, made once."""
+        rows = self._rows_on.get(device)
+        if rows is None:
+            rows = self._rows_on[device] = torch.as_tensor(
+                self.rows_per_table, dtype=torch.int64, device=device)
+        return rows
+
+    def _read_count(self, count: torch.Tensor) -> int:
+        """A device count on the host: the call's one sync before the step.
+        On a card it is copied into a pinned word the engine owns, so it
+        is no pageable copy out."""
+        if count.device.type != "cuda":
+            return int(count)
+        if self._count_host is None:
+            self._count_host = torch.empty((), dtype=count.dtype, pin_memory=True)
+        self._count_host.copy_(count, non_blocking=True)
+        torch.cuda.current_stream(count.device).synchronize()
+        return int(self._count_host)
+
     def _serve_block(self, idx, bg_iops: float, valid,
                      ws: Optional[WallSpans]
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The dense entry's host path: validation on the host (padded
+        positions zeroed once), the block's copies in, then ``_finish``."""
         idx = np.asarray(idx, np.int32)
         if idx.ndim != 3:
             raise ValueError(f"idx must be [B, T, P], got shape {idx.shape}")
@@ -389,9 +489,18 @@ class ServingEngineBase:
         copies = {d: (live_t.to(d), valid_t.to(d))
                   for d in dict.fromkeys(self.devices)}
         if ws is not None:
+            reg.inc("engine.h2d_bytes", len(copies) * (live.nbytes + valid.nbytes))
             ws.lap("engine.h2d")
+        return self._finish([copies[d] for d in self.devices], bg_iops, ws)
+
+    def _finish(self, blocks: List[Tuple[torch.Tensor, torch.Tensor]],
+                bg_iops: float, ws: Optional[WallSpans]
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Both entries' tail: the step over the blocks on ``devices``, the
+        copies out and the accounting."""
+        if ws is not None:
             ws.open("engine.step")
-        pooled, miss = self._step([copies[d] for d in self.devices], ws)
+        pooled, miss = self._step(blocks, ws)
         if ws is not None:
             ws.close()
         pooled, miss = pooled.cpu().numpy(), miss.cpu().numpy()

@@ -29,7 +29,8 @@ single controller does with ``lax.psum`` / ``lax.all_gather``; no process
 group is involved.
 
 The host path is ``engine.ServingEngineBase``'s, shared with the single
-engine: validation, the copies in (once to each distinct device) and out,
+engine: validation, the copies in (once to each distinct device, where
+``serve_columnar`` builds the block with the ``densify`` kernel) and out,
 and the IO accounting, which prices the shards' ``[n, B, T]`` miss blocks
 in one coalesced ``IOEngine`` submission, shard-major (a query's SM time
 is the max over shards and tables, its ``sm_ios`` the sum). Only

@@ -13,6 +13,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.io_sim import DEVICES
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels import cache_probe as cp_module
+from repro_torch.kernels import densify
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import gather_pool as gp_module
 from repro_torch.kernels.cache_probe import cache_probe
@@ -66,6 +67,59 @@ def test_cache_probe_kernel_matches_plain(cuda):
     vals_ref, hit_ref = ref.cache_probe_ref(*args)
     assert torch.equal(hit, hit_ref) and int(hit.sum()) > 0
     torch.testing.assert_close(vals, vals_ref, rtol=0.0, atol=1e-6)
+
+
+def _densify_args(cuda, B, T, longest, seed, bad=False):
+    """A chunk's CSR arrays as the engine copies them in: B queries over T
+    tables, each query touching 90% of them, bags of 0 to ``longest`` keys
+    (one of exactly ``longest``), keys below each table's rows. With
+    ``bad``, a negative key, one at its table's rows and one past 2**31
+    that would narrow into range."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(1, 2_000_000, T).astype(np.int64)
+    row_seg = np.full(B * T, -1, np.int32)
+    seg_rows = np.flatnonzero(rng.random(B * T) < 0.9)
+    row_seg[seg_rows] = np.arange(len(seg_rows), dtype=np.int32)
+    lens = rng.integers(0, longest + 1, len(seg_rows))
+    lens[0] = longest
+    offsets = np.r_[0, np.cumsum(lens)].astype(np.int32)
+    limit = np.repeat(rows[seg_rows % T], lens)
+    values = (rng.random(len(limit)) * limit).astype(np.int64)
+    if bad:
+        first, mid, last = 0, len(values) // 2, len(values) - 1
+        assert first < mid < last
+        values[[first, mid, last]] = [-1, limit[mid], 2 ** 31 + 5]
+    return [torch.from_numpy(a).to(cuda) for a in (values, row_seg, offsets, rows)]
+
+
+@pytest.mark.parametrize("B,T,longest", [(32, 61, 64), (32, 450, 25), (32, 450, 64),
+                                         (3, 5, 1), (4, 3, 2), (5, 7, 3)])
+@pytest.mark.parametrize("bad", [False, True])
+def test_densify_kernel_matches_plain(cuda, B, T, longest, bad):
+    """The kernel's block, mask and count equal the plain version's bit for
+    bit at M1's (32 x 61, P 64) and M2's (32 x 450) chunk shapes and at P 1,
+    2 and 4, where a thread's 4 slots span rows."""
+    args = _densify_args(cuda, B, T, longest, B * T + longest, bad)
+    P = 1 << (longest - 1).bit_length()
+    densify.launches = 0
+    got = densify.densify(*args, P)
+    want = ref.densify_ref(*args, P)
+    torch.cuda.synchronize()
+    assert densify.launches == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    n_bad = int(got[2])
+    assert n_bad == (3 if bad else 0)
+
+
+def test_densify_kernel_no_keys(cuda):
+    """A chunk whose bags are all empty: an all-zero block, no count."""
+    rows = torch.tensor([5, 5], dtype=torch.int64, device=cuda)
+    row_seg = torch.tensor([0, -1, 1, -1], dtype=torch.int32, device=cuda)
+    offsets = torch.zeros(3, dtype=torch.int32, device=cuda)
+    values = torch.zeros(0, dtype=torch.int64, device=cuda)
+    idx, valid, bad = densify.densify(values, row_seg, offsets, rows, 1)
+    assert not idx.any() and not valid.any() and int(bad) == 0
 
 
 def _gather_args(cuda, R, D, N, P, dtype, seed, payload=None):
@@ -356,7 +410,7 @@ def test_serve_columnar_on_card_matches_cpu(cuda, name, P):
         np.testing.assert_allclose(pc, card.reference_pool(idx, valid),
                                    rtol=1e-5, atol=1e-5)
     counts = ops.launch_counts()
-    assert counts["gather_pool"] == counts["cache_probe"] == len(chunks)
+    assert counts["gather_pool"] == counts["cache_probe"] == counts["densify"] == len(chunks)
     assert card.hit_rate == host.hit_rate and 0.0 < card.hit_rate < 1.0
     for k, v in card.state.items():
         assert torch.equal(v.cpu(), host.state[k]), k
@@ -402,10 +456,38 @@ def _sharded_on_card_case(cuda, layout, dim, pitch):
                                    rtol=1e-5, atol=1e-5)
     counts = ops.launch_counts()
     assert counts["gather_pool"] == counts["cache_probe"] == 4 * len(chunks)
+    assert counts["densify"] == len(chunks)            # one device: one block a call
     assert kern.hit_rate == plain.hit_rate and 0.0 < kern.hit_rate < 1.0
     for k in range(4):
         for key, v in kern.state[k].items():
             assert torch.equal(v, plain.state[k][key]), (k, key)
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["single", "sharded2"])
+def test_serve_columnar_bad_key_on_card_leaves_the_cache(cuda, sharded):
+    """On the card, a key at its table's rows and an int64 key past 2**31
+    raise ``ValueError`` from the kernel's count before the step: every
+    cache-state tensor, the clock included, as it was."""
+    from repro_torch.core.columnar import ColumnarQueries
+    rng = np.random.default_rng(8)
+    tables = {3: rng.standard_normal((32, 8)).astype(np.float32),
+              5: rng.standard_normal((48, 8)).astype(np.float32)}
+    cfg = EngineConfig(hbm_cache_bytes=1 << 12, ways=4)
+    eng = (ShardedServingEngine(tables, DEVICES["nand_flash"], cfg,
+                                mesh=make_embed_mesh(devices=[cuda] * 2))
+           if sharded else DeviceServingEngine(tables, DEVICES["nand_flash"], cfg,
+                                               torch_device=cuda))
+    good = [{3: np.array([1, 2, 3]), 5: np.array([4, 7])}, {5: np.array([9])}]
+    eng.serve_columnar(ColumnarQueries.from_requests(good).whole())
+    states = eng.state if sharded else [eng.state]
+    for key in (48, 2 ** 32 + 3):
+        before = [{k: v.clone() for k, v in st.items()} for st in states]
+        reqs = [{3: np.array([1]), 5: np.array([4, key], np.int64)}]
+        with pytest.raises(ValueError, match="row index out of range"):
+            eng.serve_columnar(ColumnarQueries.from_requests(reqs).whole())
+        for st, was in zip(states, before):
+            for k in st:
+                assert torch.equal(st[k], was[k]), k
 
 
 def test_make_embed_mesh_needs_a_card_per_shard(cuda):

@@ -89,7 +89,7 @@ def test_three_batches_match_reference(use_kernels):
         _serve_both(j, t, idx, bg_iops=1e4 * (rep + 1))
     # CPU tensors take the plain versions: nothing launched
     assert ops.launch_counts() == {"gather_pool": 0, "cache_probe": 0,
-                                   "flash_decode": 0}
+                                   "flash_decode": 0, "densify": 0}
     assert 0.0 < t.hit_rate < 1.0
 
 
@@ -570,6 +570,156 @@ def test_dense_from_chunk_slot_out_of_range():
     for eng, cq in ((teng, TColumnar), (jeng, JColumnar)):
         with pytest.raises(IndexError):
             eng.dense_from_chunk(cq.from_requests(reqs).whole(), {1: 0, 2: 2}, 2)
+
+
+def _plain_block(chunk, slots, T):
+    """The block the engine builds on its device, by the plain version of
+    ``ops.csr_densify`` from ``block_inputs``: (idx, valid, bad) [B, T, P]."""
+    seg = teng.chunk_segments(chunk, slots, T)
+    values, meta = teng.block_inputs(seg, T)
+    assert values.dtype == np.int64
+    B, P = seg.n_queries, seg.P
+    m = torch.from_numpy(meta)
+    rows = torch.arange(T, dtype=torch.int64) * 7 + 1000     # any limits above the keys
+    idx, valid, bad = ops.csr_densify(torch.from_numpy(values), m[:B * T], m[B * T:],
+                                      rows, P, use_kernel=False)
+    return idx.view(B, T, P).numpy(), valid.view(B, T, P).numpy(), int(bad)
+
+
+@pytest.mark.parametrize("dtype", [np.int64, np.int32])
+@pytest.mark.parametrize("case", DENSIFY_CASES)
+def test_plain_densify_equals_dense_from_chunk(case, dtype):
+    """The card's block, by the kernel's plain version from the CSR arrays
+    the engine copies in, equals ``dense_from_chunk`` bit for bit: ragged
+    bags, empty bags, tables a query lacks, slots out of table-id order, a
+    trace's keys int64 or int32 (``block_inputs`` widens them to the
+    kernel's one width)."""
+    reqs, ranges, slots, _ = _densify_case(case)
+    tq = TColumnar.from_requests(reqs)
+    tq = TColumnar(tq.values.astype(dtype), tq.seg_offsets, tq.seg_table, tq.query_seg)
+    T = max(slots.values()) + 1
+    for qs, qe, csize in ranges:
+        ch = tq.chunk(qs, qe, csize)
+        idx, valid = teng.dense_from_chunk(ch, slots, T)
+        pidx, pvalid, bad = _plain_block(ch, slots, T)
+        assert pidx.dtype == np.int32 and pvalid.dtype == np.bool_ and bad == 0
+        np.testing.assert_array_equal(pidx, idx)
+        np.testing.assert_array_equal(pvalid, valid)
+
+
+@pytest.mark.parametrize("P", [1, 2, 4, 8, 16, 32, 64])
+def test_plain_densify_at_each_width(P):
+    """Bags whose longest is P (and one shorter by one, where P > 1) over 5
+    tables, some missing and some empty: the block is P wide and equal to
+    ``dense_from_chunk``'s."""
+    rng = np.random.default_rng(P)
+    tids = [2, 9, 4, 11, 30]
+    reqs = _ragged_requests(rng, 9, tids, P)
+    reqs[0] = {9: rng.integers(0, 1000, P), 4: np.zeros(0, np.int64)}
+    reqs[1] = {30: rng.integers(0, 1000, max(P - 1, 0))}
+    slots = {t: i for i, t in enumerate(tids)}
+    ch = TColumnar.from_requests(reqs).whole()
+    idx, valid = teng.dense_from_chunk(ch, slots, 5)
+    pidx, pvalid, bad = _plain_block(ch, slots, 5)
+    assert idx.shape == (9, 5, P) and bad == 0
+    np.testing.assert_array_equal(pidx, idx)
+    np.testing.assert_array_equal(pvalid, valid)
+
+
+def _twin_engines(tables, sharded, use_kernels=False):
+    """Two CPU engines of one kind: the single engine, or a 2-shard row
+    layout."""
+    cfg = teng.EngineConfig(hbm_cache_bytes=1 << 12, ways=4, use_kernels=use_kernels)
+    if sharded:
+        from repro_torch.launch import make_embed_mesh
+        from repro_torch.runtime.sharded_engine import ShardedServingEngine
+        return [ShardedServingEngine(tables, tio.DEVICES["nand_flash"], cfg,
+                                     mesh=make_embed_mesh(2, "cpu")) for _ in range(2)]
+    return [teng.DeviceServingEngine(tables, tio.DEVICES["nand_flash"], cfg,
+                                     torch_device="cpu") for _ in range(2)]
+
+
+def _states_of(eng):
+    return eng.state if isinstance(eng.state, list) else [eng.state]
+
+
+def _clone_states(eng):
+    return [{k: v.clone() for k, v in st.items()} for st in _states_of(eng)]
+
+
+def _assert_states_same(a, b):
+    for sa, sb in zip(a, b, strict=True):
+        assert sa.keys() == sb.keys()
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k
+
+
+ENGINE_KINDS = pytest.mark.parametrize("sharded", [False, True], ids=["single", "sharded2"])
+
+
+@ENGINE_KINDS
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_serve_columnar_equals_serve_batch_of_dense_block(sharded, use_kernels):
+    """``serve_columnar`` (the block built from the CSR arrays on the
+    engine's device) and ``serve_batch`` of ``dense_from_chunk``'s block on a
+    twin engine serve the same: pooled output, ``sm_ios`` and
+    ``sm_time_us`` equal, and every cache-state tensor after every chunk."""
+    tt, _, tables = _trace_pair("zipf_steady", 48)
+    a, b = _twin_engines(tables, sharded, use_kernels)
+    for tc in tt.chunks(16):
+        pa, ta, ia = a.serve_columnar(tc.columnar, bg_iops=5e4)
+        idx, valid = teng.dense_from_chunk(tc.columnar, b.table_slot, len(tables))
+        pb, stats = b.serve_batch(idx, 5e4, valid=valid)
+        np.testing.assert_array_equal(pa, pb)
+        assert ia.tolist() == [s.sm_ios for s in stats]
+        assert ta.tolist() == [s.sm_time_us for s in stats]
+        _assert_states_same(_states_of(a), _states_of(b))
+    assert a.stats == b.stats and 0.0 < a.hit_rate < 1.0
+
+
+@ENGINE_KINDS
+@pytest.mark.parametrize("bad", ["negative", "at_rows", "past_rows", "past_2_31"])
+def test_serve_columnar_bad_key_raises_before_any_state_change(sharded, bad):
+    """A key outside its table raises ``ValueError`` from the count the
+    block's build keeps, before the step: every cache-state tensor (the
+    clock included) and the store totals are as they were. An int64 key
+    past 2**31 is caught as an int64: narrowed, 2**32 + 3 would be row
+    3, in range."""
+    rng = np.random.default_rng(11)
+    tables = {3: rng.standard_normal((32, 8)).astype(np.float32),
+              5: rng.standard_normal((48, 8)).astype(np.float32)}
+    eng, _ = _twin_engines(tables, sharded)
+    good = [{3: np.array([1, 2, 3]), 5: np.array([4, 7])}, {5: np.array([9])}]
+    eng.serve_columnar(TColumnar.from_requests(good).whole())
+    key = {"negative": -1, "at_rows": 48, "past_rows": 1000,
+           "past_2_31": 2 ** 32 + 3}[bad]
+    reqs = [{3: np.array([1, 2]), 5: np.array([4, key], np.int64)}, {3: np.array([0])}]
+    before, stats = _clone_states(eng), dataclasses.replace(eng.stats)
+    with pytest.raises(ValueError, match="row index out of range"):
+        eng.serve_columnar(TColumnar.from_requests(reqs).whole())
+    _assert_states_same(before, _states_of(eng))
+    assert eng.stats == stats
+    eng.serve_columnar(TColumnar.from_requests(good).whole())   # still serves
+
+
+@ENGINE_KINDS
+def test_serve_columnar_missing_table_and_bad_slot(sharded):
+    """Through ``serve_columnar`` on both engines: a table id the engine
+    lacks raises ``KeyError`` with that id, a slot past its tables
+    ``IndexError``; neither touches the cache."""
+    rng = np.random.default_rng(12)
+    tables = {1: rng.standard_normal((16, 8)).astype(np.float32),
+              2: rng.standard_normal((16, 8)).astype(np.float32)}
+    eng, _ = _twin_engines(tables, sharded)
+    before = _clone_states(eng)
+    reqs = [{1: np.array([3, 4]), 2: np.array([5])}, {8: np.array([1])}]
+    with pytest.raises(KeyError) as e:
+        eng.serve_columnar(TColumnar.from_requests(reqs).whole())
+    assert e.value.args == (8,)
+    eng.table_slot = {1: 0, 2: 2}
+    with pytest.raises(IndexError):
+        eng.serve_columnar(TColumnar.from_requests(reqs[:1]).whole())
+    _assert_states_same(before, _states_of(eng))
 
 
 def test_densify_reads_no_table_views(monkeypatch):

@@ -40,7 +40,7 @@ def _no_launches():
     ops.reset_launch_counts()
     yield
     assert ops.launch_counts() == {"gather_pool": 0, "cache_probe": 0,
-                                   "flash_decode": 0}
+                                   "flash_decode": 0, "densify": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -183,15 +183,80 @@ def test_cache_probe_wrapper_rejects_bad_operands():
         cache_probe(wide, wide, torch.zeros((S, 33, D)), qt, qr, sets)
 
 
+def _densify_inputs():
+    """Two queries over 3 tables: row 1 (query 0, slot 1) and row 3 (query 1,
+    slot 0) hold bags of 2 and 3 keys, the rest none."""
+    values = torch.tensor([5, 6, 7, 8, 9], dtype=torch.int64)
+    row_seg = torch.tensor([-1, 0, -1, 1, -1, -1], dtype=torch.int32)
+    offsets = torch.tensor([0, 2, 5], dtype=torch.int32)
+    rows = torch.tensor([10, 7, 10], dtype=torch.int64)
+    return values, row_seg, offsets, rows
+
+
+def test_densify_wrapper_rejects_bad_operands():
+    from repro_torch.kernels.densify import densify
+    values, row_seg, offsets, rows = _densify_inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        densify(values, row_seg, offsets, rows, 4)               # CPU tensors
+    with pytest.raises(TypeError):
+        densify(values.to(torch.int16), row_seg, offsets, rows, 4)
+    with pytest.raises(TypeError, match="int64"):
+        densify(values.int(), row_seg, offsets, rows, 4)          # one key width
+    with pytest.raises(TypeError):
+        densify(values, row_seg.long(), offsets, rows, 4)
+    with pytest.raises(TypeError):
+        densify(values, row_seg, offsets, rows.int(), 4)
+    with pytest.raises(ValueError, match="power of two"):
+        densify(values, row_seg, offsets, rows, 3)
+    with pytest.raises(ValueError):
+        densify(values.view(5, 1), row_seg, offsets, rows, 4)
+
+
+def test_densify_plain_version_and_operator_on_the_cpu():
+    """The operator on CPU tensors is the plain version: each bag a prefix
+    of its row, the block's other slots zero and False, and the keys at or
+    past their table's rows counted; the fake implementation gives the
+    shapes and dtypes alone."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    args = _densify_inputs()
+    idx, valid, bad = ops.csr_densify(*args, 4)
+    want = torch.zeros((6, 4), dtype=torch.int32)
+    want[1, :2] = torch.tensor([5, 6])
+    want[3, :3] = torch.tensor([7, 8, 9])
+    assert torch.equal(idx, want) and torch.equal(valid, want != 0)
+    assert bad.dtype == torch.int32 and bad.shape == () and int(bad) == 0
+    rows = args[3].clone()
+    rows[0] = 8                                    # slot 0 (row 3) holds 7, 8, 9
+    assert int(ops.csr_densify(*args[:3], rows, 4)[2]) == 2
+    for got, plain in zip(ops.csr_densify(*args, 4),
+                          ops.csr_densify(*args, 4, use_kernel=False)):
+        assert torch.equal(got, plain)
+    with FakeTensorMode() as mode:
+        fake = [mode.from_tensor(a) for a in args]
+        f_idx, f_valid, f_bad = torch.ops.repro_torch.densify(*fake, 8)
+    assert (f_idx.shape, f_idx.dtype) == ((6, 8), torch.int32)
+    assert (f_valid.shape, f_valid.dtype) == ((6, 8), torch.bool)
+    assert (f_bad.shape, f_bad.dtype) == ((), torch.int32)
+
+
+# what each kernel's source names as the reference code it replaces: a Pallas
+# kernel, or for ``densify`` the reference's host densify
+REPLACES = {"gather_pool": "src/repro/kernels/gather_pool.py",
+            "cache_probe": "src/repro/kernels/cache_probe.py",
+            "flash_decode": "src/repro/kernels/flash_decode.py",
+            "densify": "src/repro/runtime/engine.py"}
+
+
 def test_build_targets_hopper_from_checkout_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert set(build.KERNELS) == set(REPLACES)
     for name in build.KERNELS:
         assert (build.CSRC / f"{name}.cu").exists()
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.suffix == ".so"
         assert path == build.library_path(name)     # keyed on content only
         text = (build.CSRC / f"{name}.cu").read_text()
-        assert f"src/repro/kernels/{name}.py" in text   # names what it replaces
+        assert REPLACES[name] in text               # names what it replaces
 
 
 # ---------------------------------------------------------------------------

@@ -95,9 +95,11 @@ def test_one_of_each_span_a_call_nested_in_its_parent():
             if args["parent"] is not None:
                 ps, pe = at[args["parent"]]
                 assert ps - ULP_US <= s and e <= pe + ULP_US
-        # siblings meet end to start: one clock read per boundary
-        for a, b in [("engine.densify", "engine.validate"), ("engine.validate", "engine.h2d"),
-                     ("engine.h2d", "engine.step"), ("engine.step", "engine.d2h"),
+        # siblings meet end to start: one clock read per boundary. The
+        # columnar entry copies the CSR arrays in before the card builds and
+        # checks the block: densify, h2d, validate, step
+        for a, b in [("engine.densify", "engine.h2d"), ("engine.h2d", "engine.validate"),
+                     ("engine.validate", "engine.step"), ("engine.step", "engine.d2h"),
                      ("engine.d2h", "engine.account"), ("step.probe", "step.hit_pool"),
                      ("step.hit_pool", "step.miss_pool"), ("step.miss_pool", "step.dedupe"),
                      ("step.dedupe", "step.fill")]:
@@ -118,6 +120,53 @@ def test_serve_batch_alone_has_no_serve_or_densify_span():
     names = {n for n, *_ in spans}
     assert names == set(PARENT) - {"engine.serve", "engine.densify"}
     assert all(a["parent"] is None for n, _, _, a in spans if not n.startswith("step."))
+
+
+@pytest.mark.parametrize("shards", [None, 2], ids=["single", "sharded2"])
+def test_serve_batch_spans_keep_their_order(shards):
+    """The dense entry validates on the host before its copies in:
+    validate, h2d, step, d2h, account, each meeting the next."""
+    tables = _tables()
+    eng = _wall_engine(tables, shards)
+    for ch in _chunks(tables, n=2, seed=3):
+        idx, valid = dense_from_chunk(ch, eng.table_slot, len(tables))
+        eng.serve_batch(idx, 1e4, valid=valid)
+    calls = _by_call(eng.telemetry.wall.events)
+    assert len(calls) == 2
+    order = ["engine.validate", "engine.h2d", "engine.step", "engine.d2h", "engine.account"]
+    for spans in calls.values():
+        at = {n: (s, e) for n, s, e, _ in spans}
+        for a, b in zip(order, order[1:]):
+            assert at[a][1] == pytest.approx(at[b][0], abs=ULP_US)
+        assert [n for n, *_ in sorted((x for x in spans if x[0] in order),
+                                      key=lambda x: x[1])] == order
+
+
+@pytest.mark.parametrize("shards", [None, 2], ids=["single", "sharded2"])
+def test_h2d_bytes_counts_each_calls_copies_in(shards):
+    """``engine.h2d_bytes``: the bytes a call copies in. The columnar entry
+    copies the chunk's keys as int64 and one int32 word a block row and a
+    segment, plus one; the dense entry 5 bytes a slot (int32 key,
+    bool mask). Two CPU shards share one device: one copy."""
+    from repro_torch.runtime.engine import block_inputs, chunk_segments
+    tables = _tables()
+    eng = _wall_engine(tables, shards)
+    reg = eng.telemetry.registry
+    total = 0
+    for ch in _chunks(tables, n=3, seed=2):
+        values, meta = block_inputs(chunk_segments(ch, eng.table_slot, len(tables)),
+                                    len(tables))
+        B, S = ch.n_queries, len(ch.parent.seg_table)
+        assert values.dtype == np.int64 and meta.nbytes == 4 * (B * len(tables) + S + 1)
+        eng.serve_columnar(ch, 1e4)
+        total += values.nbytes + meta.nbytes
+        assert reg.as_dict()["counters"]["engine.h2d_bytes"] == total
+    idx, valid = dense_from_chunk(_chunks(tables, n=1, seed=2)[0], eng.table_slot,
+                                  len(tables))
+    eng.serve_batch(idx, 1e4, valid=valid)
+    assert reg.as_dict()["counters"]["engine.h2d_bytes"] == total + 5 * idx.size
+    # less than the dense block the columnar entry no longer copies
+    assert values.nbytes + meta.nbytes < 5 * idx.size
 
 
 SHARDS = pytest.mark.parametrize("shards", [None, 2], ids=["single", "sharded2"])
@@ -165,8 +214,8 @@ def test_no_wall_recorder_reads_no_clock(monkeypatch, flag, shards):
         assert not [e for e in tel.tracer.events if e[3].startswith(("engine.", "step."))]
         counters = tel.registry.as_dict()["counters"]
         assert counters["engine.batches"] == 2
-        assert not {"engine.slots", "engine.valid_keys",
-                    "engine.filled_rows"} & set(counters)
+        assert not {"engine.slots", "engine.valid_keys", "engine.filled_rows",
+                    "engine.h2d_bytes"} & set(counters)
         assert not {"engine.dim", "engine.row_pitch"} & set(tel.registry.gauges)
 
 
