@@ -1,8 +1,10 @@
-"""The readings that the limit of ``pooled_gap`` is set from, at a cell's own
-size: for each seed, one run of the program (its gap from the reference)
-and the reference's controls put in its place in the precision below the
-configuration's -- rows held in bfloat16 (``bf16_rows``) and a 4-bit store
-(``int4_store``) -- on the same sampled chunks, each judged by the run's own
+"""The readings that the limit of ``pooled_gap`` (or, for a configuration
+with a scoring head, ``score_gap``) is set from, at a cell's own size: for
+each seed, one run of the program (its gap from the reference) and the
+reference's controls put in its place in the precision below the
+configuration's -- rows held in bfloat16 (``bf16_rows``), a 4-bit store
+(``int4_store``) and, with a head, its matmul operands rounded to TF32
+(``tf32_head``) -- on the same sampled chunks, each judged by the run's own
 checks: a control has to come out not correct. The benchmark's own runs do
 not run it.
 
@@ -30,14 +32,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path[:0] = [str(ROOT / "src"), str(HERE)]
     import sdmb_harness as harness
+    scored = "scoring" in harness.load_cell(ROOT, args.workload).config
+    key = "score_gap" if scored else "pooled_gap"
+    controls = ("bf16_rows", "int4_store") + (("tf32_head",) if scored else ())
     for seed in (int(s) for s in args.seeds.split(",")):
         out = harness.run(ROOT, args.workload, seed, args.seconds, False, device=args.device,
-                          controls=("bf16_rows", "int4_store"))
+                          controls=controls)
         print(json.dumps({"workload": args.workload, "seed": seed, "correct": out["correct"],
-                          "pooled_gap": out["checks"]["pooled_gap"]["value"],
-                          "limit": out["checks"]["pooled_gap"]["limit"],
-                          "controls": {k: {"correct": c["correct"],
-                                           "pooled_gap": c["checks"]["pooled_gap"]["value"]}
+                          key: out["checks"][key]["value"],
+                          "limit": out["checks"][key]["limit"],
+                          "controls": {k: {"correct": c["correct"], key: c["checks"][key]["value"]}
                                        for k, c in out["controls"].items()}}), flush=True)
     return 0
 

@@ -15,10 +15,39 @@ cache has taken fills of ``warmup_fills`` times its rows, and at least
 serves chunk after chunk, closed loop, for ``seconds`` of serving. Each
 timed call starts from the chunk's raw CSR arrays: ``ColumnarQueries(...)``,
 ``.whole()``, ``serve_columnar``; it returns host arrays, so it ends
-synchronized. With ``trace`` the window runs under the device profiler and
-the per-layer metrics are read; without, the end-to-end ones. Once the
-window has closed, the program's state is freed and the plain reference
-(``sdmb_reference``) decides ``correct``.
+synchronized. With ``trace`` the window runs under the device profiler, the
+engine records its wall spans and counters (``ObsConfig(wall_spans=True)``,
+attached for the window only, each call stamped in Unix ns; read by
+``sdmb_spans``), and the per-layer metrics are read; without, the
+end-to-end ones, and nothing is attached. Once the window has closed, the
+program's state is freed and the plain reference (``sdmb_reference``)
+decides ``correct``.
+
+A configuration may hold a ``scoring`` block. The run then serves the whole
+query, pool then score, and the reference decides ``correct`` on the
+logits:
+
+* ``program``: ``"module:function"``, imported from the checkout's ``src/``
+  or ``sdm_bench/``. Set-up builds ``server = function(engine, weights,
+  spec)`` right after the engine; warm-up and the window call
+  ``server.serve_columnar(chunk, bg_iops, dense)``, which returns
+  ``(logits [B] f32, sm_time_us [B], sm_ios [B])`` on the host.
+* ``reference``: the head's plain reference, ``sdm_bench/heads/<name>.py``
+  (``param_shapes(spec)`` and ``logits(torch, pooled, dense, weights,
+  spec)``; it multiplies through ``torch.matmul`` of the namespace it is
+  given, so the ``tf32_head`` control can round the operands).
+* ``num_dense`` and ``dense_law`` (``log1p_exponential``): each query's
+  dense features, ``[B, num_dense]`` f32 made from the seed block by block
+  (``sdmb_inputs.dense_block``).
+* ``spec``: a free-form dict of widths, handed to both sides with
+  ``num_dense`` added.
+* ``limits.score_gap``: the limit of the largest ``|program - reference|``
+  over the head run on the magnitudes of its weights and inputs (the bags'
+  sums of their terms' magnitudes), which takes ``pooled_gap``'s place.
+
+The weights are drawn from the seed on the host for every parameter the
+reference lists (``sdmb_inputs.head_weights``), moved to the device and
+handed to the program; the reference draws them again.
 
 ``memory_peak_bytes`` is the window's own peak: the device's peak counter
 is reset once set-up has ended (set-up's peak, the program's f32 tables
@@ -43,6 +72,7 @@ import numpy as np
 
 import sdmb_inputs as inputs
 import sdmb_reference as reference
+import sdmb_spans as spans
 from sdmb_yardstick import ChunkCounts
 
 BENCH = "sdm_bench"
@@ -86,6 +116,32 @@ def reader(root: pathlib.Path, kind: str, name: str):
     return mod.read
 
 
+def head_of(root: pathlib.Path, cfg: dict) -> Optional[reference.Head]:
+    """The configuration's scoring head, or None where it has no block."""
+    block = cfg.get("scoring")
+    if block is None:
+        return None
+    path = root / BENCH / "heads" / f"{block['reference']}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"sdmb_head_{block['reference'].replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return reference.Head(mod, block)
+
+
+def program_entry(root: pathlib.Path, name: str):
+    """The function ``"module:function"`` names, the module imported with
+    the checkout's ``src/`` and ``sdm_bench/`` ahead on the path."""
+    module, _, function = name.partition(":")
+    saved = list(sys.path)
+    sys.path[:0] = [str(root / "src"), str(root / BENCH)]
+    try:
+        mod = importlib.import_module(module)
+    finally:
+        sys.path[:] = saved
+    return getattr(mod, function)
+
+
 def forbidden_modules(names: Optional[Sequence[str]] = None) -> List[str]:
     """The forbidden top-level names among ``names`` (the loaded modules by
     default), each compared whole: ``repro_torch`` is not ``repro``."""
@@ -113,12 +169,23 @@ def cpu_mhz() -> Optional[float]:
     return sum(mhz) / len(mhz) if mhz else None
 
 
+def steal_s() -> Optional[float]:
+    """Seconds the hypervisor has given the machine's cores to others, summed
+    over the cores, where the host shows it."""
+    try:
+        with open("/proc/stat") as f:
+            fields = f.readline().split()
+        return int(fields[8]) / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
 def host_state() -> Dict:
-    """What the host path competes with: the host's load and clock, this
-    process's involuntary context switches and CPU seconds."""
+    """What the host path competes with: the host's load, clock and stolen
+    time, this process's involuntary context switches and CPU seconds."""
     ru = resource.getrusage(resource.RUSAGE_SELF)
     return {"load1": os.getloadavg()[0], "nivcsw": ru.ru_nivcsw,
-            "cpu_s": ru.ru_utime + ru.ru_stime, "mhz": cpu_mhz()}
+            "cpu_s": ru.ru_utime + ru.ru_stime, "mhz": cpu_mhz(), "steal_s": steal_s()}
 
 
 class GcClock:
@@ -141,6 +208,10 @@ class GcClock:
 
     def __exit__(self, *exc):
         gc.callbacks.remove(self)
+
+
+def _delta(a: Optional[float], b: Optional[float]) -> str:
+    return "unknown" if a is None or b is None else f"{b - a:.2f}"
 
 
 def verdict(checks: Dict) -> bool:
@@ -168,13 +239,15 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
     from repro_torch.core.columnar import ColumnarQueries
     from repro_torch.core.io_sim import DEVICES
     from repro_torch.kernels import ops
-    from repro_torch.runtime.engine import (DeviceServingEngine, EngineConfig,
-                                            dense_from_chunk)
+    from repro_torch.runtime.engine import DeviceServingEngine, EngineConfig
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     inv = inputs.Inventory.from_config(cfg)
-    T, D = inv.num_tables, inv.dim
+    D = inv.dim
+    head = head_of(root, cfg)
+    if head is None and "tf32_head" in controls:
+        raise ValueError("the tf32_head control needs a configuration with a scoring head")
     sm, cache = cfg["sm"], cfg["cache"]
     sets, ways = reference.cache_geometry(cache["hbm_bytes"], D, cache["ways"])
     if (sets, ways) != (cache["sets"], cache["ways"]):
@@ -201,10 +274,18 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
         raise ValueError(f"the program built a {engine.cache.geo.num_sets} x "
                          f"{engine.cache.geo.ways} cache, the configuration states "
                          f"{sets} x {ways}")
+    server = None
+    if head is not None:
+        weights = inputs.head_weights(torch, head.param_shapes(), seed, dev)
+        server = program_entry(root, cfg["scoring"]["program"])(engine, weights,
+                                                                 dict(head.spec))
+        del weights
     sync()
     times["store_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    src = inputs.ChunkSource(inputs.TrafficGen(torch, inv, traffic, seed, dev))
+    src = inputs.ChunkSource(inputs.TrafficGen(torch, inv, traffic, seed, dev),
+                             dense=None if head is None else (head.num_dense,
+                                                              head.dense_law))
     src.make_next_block()
     sync()
     times["traffic_s"] = time.perf_counter() - t
@@ -220,7 +301,11 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
                                    f"want {want_fills}")
             raw = src.raw(n_warm)
             tw = time.perf_counter()
-            _, _, ios = engine.serve_columnar(ColumnarQueries(*raw).whole(), bg)
+            if server is None:
+                _, _, ios = engine.serve_columnar(ColumnarQueries(*raw).whole(), bg)
+            else:
+                _, _, ios = server.serve_columnar(ColumnarQueries(*raw).whole(), bg,
+                                                  src.dense(n_warm))
             warm_walls.append(time.perf_counter() - tw)
             fills += int(ios.sum())
             n_warm += 1
@@ -244,7 +329,7 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
     hits0, misses0 = int(state["hits"]), int(state["misses"])
     ops.reset_launch_counts()
     win = types.SimpleNamespace(walls=[], ios=[], smt=[], kept={}, serving=0.0,
-                                ran_out=False)
+                                ran_out=False, calls=[])
 
     def serve_window():
         k = 0
@@ -257,25 +342,38 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
                 src.make_next_block()          # between calls: not timed
                 sync()
             raw = src.raw(i)
+            dense = None if server is None else src.dense(i)
+            a = time.time_ns() if trace else 0
             tc = time.perf_counter()
-            pooled, smt, ios = engine.serve_columnar(ColumnarQueries(*raw).whole(), bg)
+            if server is None:
+                out, smt, ios = engine.serve_columnar(ColumnarQueries(*raw).whole(), bg)
+            else:
+                out, smt, ios = server.serve_columnar(ColumnarQueries(*raw).whole(), bg,
+                                                      dense)
             w = time.perf_counter() - tc
+            if trace:
+                win.calls.append((a, time.time_ns()))
             win.serving += w
             win.walls.append(w)
             win.ios.append(ios)
             win.smt.append(smt)
             if sampled(seed, k):
-                win.kept[k] = pooled
-            win.last = (k, pooled)
+                win.kept[k] = out
+            win.last = (k, out)
             k += 1
 
-    events, marks_lost = None, None
+    events, marks_lost, tel = None, None, None
+    if trace:
+        from repro_torch.obs import ObsConfig, make_telemetry
+        engine.telemetry = make_telemetry(ObsConfig(wall_spans=True, max_spans=1 << 22))
     with torch.no_grad(), GcClock() as gc_clock:
         if trace and cuda:
             from sdmb_profile import trace_window
             events, marks_lost = trace_window(torch, serve_window)
         else:
             serve_window()
+    if trace:
+        tel, engine.telemetry = engine.telemetry, None
     host1 = host_state()
     n_win = len(win.walls)
     if n_win:
@@ -284,15 +382,8 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
     hits = int(state["hits"]) - hits0
     misses = int(state["misses"]) - misses0
     launches = ops.launch_counts()
-    dense_ms = []
-    if trace:
-        for k in range(n_win):
-            ch = ColumnarQueries(*src.raw(n_warm + k)).whole()
-            tc = time.perf_counter()
-            dense_from_chunk(ch, engine.table_slot, T)
-            dense_ms.append((time.perf_counter() - tc) * 1e3)
     tags = (state["tag_table"].clone(), state["tag_row"].clone())
-    del engine, state
+    del engine, state, server
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -304,15 +395,30 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
     log(f"sdm_bench: host over the window: load {host0['load1']:.2f} -> {host1['load1']:.2f}, "
         f"{host1['nivcsw'] - host0['nivcsw']} involuntary switches, "
         f"{host1['cpu_s'] - host0['cpu_s']:.3f} CPU s over {win.serving:.3f} s serving, "
-        f"cores at {host0['mhz']} -> {host1['mhz']} MHz, garbage collection "
+        f"cores at {host0['mhz']} -> {host1['mhz']} MHz, stolen "
+        f"{_delta(host0['steal_s'], host1['steal_s'])} core s, garbage collection "
         f"{gc_clock.seconds:.4f} s in {gc_clock.passes} passes")
 
     # -- the reference ---------------------------------------------------------
     t = time.perf_counter()
     judged = judge(torch, dev, cfg, inv, src, seed, n_warm, win, hits, misses,
-                   tags, sets, ways, bg, want_counts=trace, controls=controls)
+                   tags, sets, ways, bg, want_counts=trace, controls=controls, head=head)
     log(f"sdm_bench: reference {time.perf_counter() - t:.3f} s over "
-        f"{n_warm + n_win} chunks, {len(win.kept)} pooled outputs compared")
+        f"{n_warm + n_win} chunks, {len(win.kept)} "
+        f"{'pooled' if head is None else 'scored'} outputs compared")
+    span_metrics, idle, counters = {}, {}, {}
+    if tel is not None:
+        t = time.perf_counter()
+        counters = tel.registry.as_dict()["counters"]
+        span_metrics, idle = spans.read_window(tel.wall.events, win.calls, counters,
+                                               tel.wall.dropped, events)
+        aligned = (events is not None and spans.call_offsets(
+            events, spans.spans_ns(tel.wall.events)) is not None)
+        log(f"sdm_bench: spans {time.perf_counter() - t:.3f} s over {len(tel.wall.events)} "
+            f"spans, {tel.wall.dropped} dropped, device records aligned: {aligned}: "
+            + ", ".join(
+                f"{k} {v:.6g}" for k, v in span_metrics.items()))
+        del tel
 
     # -- metrics ---------------------------------------------------------------
     queries = int(sum(len(x) for x in win.ios))
@@ -320,8 +426,10 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
         seconds=seconds, serving_s=win.serving, walls=win.walls, queries=queries,
         sm_ios=int(sum(int(x.sum()) for x in win.ios)), setup_s=setup_s,
         counts=judged["counts"], ways=ways, hits=hits, misses=misses,
-        events=events, dense_ms=dense_ms, launches=launches, power=power,
-        summary=None)
+        events=events, launches=launches, power=power, summary=None,
+        span_metrics=span_metrics, counters=counters,
+        config=cfg, scoring=None if head is None else types.SimpleNamespace(
+            spec=head.spec, num_dense=head.num_dense, chunk=traffic["chunk"]))
     if events is not None:
         from sdmb_profile import named, summarize
         ctx.summary = summarize(events)
@@ -348,6 +456,8 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
         device_info["marks_lost"] = marks_lost
         out["breakdown"] = {"device_ops": ctx.summary["device_ops"],
                             "idle_gaps": ctx.summary["idle_gaps"]}
+        if idle:
+            out["breakdown"]["idle_by_span"] = spans.breakdown(idle)
     seg = np.floor(np.cumsum(win.walls) - 1e-12).astype(int)
     log("sdm_bench: calls per serving second " + " ".join(
         str(int(c)) for c in np.bincount(seg)) + "; median call ms "
@@ -356,21 +466,24 @@ def run(root, workload: str, seed: int, seconds: float, trace: bool, *,
         log(f"sdm_bench: the traced window used up its traffic after "
             f"{win.serving:.3f} s of serving")
     if controls:
-        # each control in the program's place: its pooled bags, the rest of the
-        # checks as the program's, the same verdict
+        # each control in the program's place: its pooled bags (or logits), the
+        # rest of the checks as the program's, the same verdict
+        key = "pooled_gap" if head is None else "score_gap"
         out["controls"] = {}
         for kind, gap in judged["controls"].items():
-            c = dict(checks, pooled_gap=dict(checks["pooled_gap"], value=gap))
+            c = dict(checks, **{key: dict(checks[key], value=gap)})
             out["controls"][kind] = {"correct": verdict(c), "checks": c}
     out["checks"] = checks
     return out
 
 
 def judge(torch, dev, cfg, inv, src, seed, n_warm, win, hits, misses, tags,
-          sets, ways, bg, *, want_counts: bool, controls: Sequence[str]) -> Dict:
+          sets, ways, bg, *, want_counts: bool, controls: Sequence[str],
+          head: Optional[reference.Head] = None) -> Dict:
     """The reference's verdict on the window: every query's SM reads and SM
     time, the window's hits and misses, the cache's tags at its close, and
-    the pooled output of the sampled chunks."""
+    the pooled output of the sampled chunks, or with a ``head`` their
+    logits (the head in float64, TF32 off)."""
     T = inv.num_tables
     values = torch.as_tensor(inv.values, device=dev)
     store = reference.RefStore(torch, inv, seed, dev)
@@ -382,8 +495,13 @@ def judge(torch, dev, cfg, inv, src, seed, n_warm, win, hits, misses, tags,
                                        torch.tensor([reference.NULL_KEY]), sets)[0])
     ios_diff = smt_diff = 0
     ref_hits = ref_misses = 0
-    pooled_gap = 0.0
+    gap = 0.0
     control_gap = {k: 0.0 for k in controls}
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    if head is not None:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        w64 = head.weights64(torch, seed, dev)
+        w_abs = {k: w.abs() for k, w in w64.items()}
     counts: List[ChunkCounts] = []
     for i in range(n_warm + len(win.walls)):
         raw = src.raw(i)
@@ -433,18 +551,31 @@ def judge(torch, dev, cfg, inv, src, seed, n_warm, win, hits, misses, tags,
             rows = store.rows(grow, torch.float64)
             ref = reference.pool(torch, rows, bag, B * T).view(B, T, -1)
             l1 = reference.pool(torch, store.magnitudes(grow), bag, B * T).view(B, T, -1)
-            pooled_gap = max(pooled_gap, reference.pooled_gap(torch, win.kept[k], ref, l1))
+            pooled = ref
+            if head is not None:
+                dense = torch.as_tensor(src.dense(i), device=dev).to(torch.float64)
+                ref = head.logits(torch, pooled, dense, w64)
+                l1 = head.logits(torch, l1, dense.abs(), w_abs)
+            gap = max(gap, reference.pooled_gap(torch, win.kept[k], ref, l1))
             for kind in controls:
-                c = reference.control_pool(torch, store4 if kind == "int4_store" else store,
-                                           kind, grow, bag, B * T).view(B, T, -1)
+                if kind == "tf32_head":
+                    c = head.tf32_logits(torch, pooled, dense, w64)
+                else:
+                    c = reference.control_pool(torch, store4 if kind == "int4_store"
+                                               else store, kind, grow, bag,
+                                               B * T).view(B, T, -1)
+                    if head is not None:
+                        c = head.logits(torch, c.to(torch.float64), dense, w64)
                 control_gap[kind] = max(control_gap[kind],
                                         reference.pooled_gap(torch, c, ref, l1))
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
     tag_t, tag_r = tags
     tags_diff = int(((tag_t.to(dev) != replay.tag_t) | (tag_r.to(dev) != replay.tag_r))
                     .sum())
-    limits = cfg["limits"]
     checks = {
-        "pooled_gap": {"value": pooled_gap, "limit": limits["pooled_gap"]},
+        ("pooled_gap" if head is None else "score_gap"): {
+            "value": gap,
+            "limit": cfg["limits"]["pooled_gap"] if head is None else head.limit},
         "sm_ios_diff": {"value": ios_diff, "limit": 0},
         "sm_time_diff": {"value": smt_diff, "limit": 0},
         "hits_diff": {"value": abs(hits - ref_hits) + abs(misses - ref_misses), "limit": 0},
@@ -453,5 +584,6 @@ def judge(torch, dev, cfg, inv, src, seed, n_warm, win, hits, misses, tags,
     for c in checks.values():              # a number JSON can hold
         if isinstance(c["value"], float) and not math.isfinite(c["value"]):
             c["value"] = 1e300
+    control_gap = {k: v if math.isfinite(v) else 1e300 for k, v in control_gap.items()}
     return {"checks": checks, "counts": counts if want_counts else None,
             "controls": control_gap}

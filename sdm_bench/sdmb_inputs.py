@@ -1,5 +1,7 @@
-"""The benchmark's inputs, made from ``--seed``: the embedding tables and the
-query traffic. Nothing here imports the program under test.
+"""The benchmark's inputs, made from ``--seed``: the embedding tables, the
+query traffic and, for a configuration with a scoring head, each query's
+dense features and the head's weights. Nothing here imports the program
+under test.
 
 Frozen copies (later changes to the program do not move the yardstick):
 
@@ -28,7 +30,8 @@ handed to it padded with zero columns to the widest row of the inventory.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,6 +41,7 @@ _DRIFT_SALT = 0xA24BAED4963EE407
 _PERM_MULT = 0x9E3779B97F4A7C15
 _LOW47 = (1 << 47) - 1           # a logical shift by 17 of a 64-bit word
 SALT_TABLES, SALT_TRAFFIC = 101, 102
+SALT_DENSE, SALT_HEAD = 104, 105        # 103: the harness's sampled chunks
 
 
 def _as_i64(x: int) -> int:
@@ -297,21 +301,68 @@ class TrafficGen:
                      np.arange(nq + 1, dtype=np.int64) * T)
 
 
+# -- a scoring head's inputs ------------------------------------------------------------
+
+
+def dense_block(seed: int, block: int, queries: int, num_dense: int,
+                law: str) -> np.ndarray:
+    """``[queries, num_dense]`` f32 dense features of block ``block``, from
+    the block's own generator (a block never depends on how many follow it).
+    ``log1p_exponential``: ``log(1 + x)`` of unit exponential draws, DLRM's
+    preprocessing of Criteo's count features."""
+    if law != "log1p_exponential":
+        raise ValueError(f"unknown dense law {law!r}")
+    rng = np.random.default_rng(sub_seed(seed, SALT_DENSE, block))
+    return np.log1p(rng.exponential(size=(queries, num_dense))).astype(np.float32)
+
+
+def head_weights(torch, shapes: Sequence[Tuple[str, Sequence[int], int]], seed: int,
+                 device) -> Dict[str, "torch.Tensor"]:
+    """Every parameter of ``shapes`` (a head's ``param_shapes``: name, shape,
+    fan-in), in its order: U(+-1/sqrt(fan_in)) in f32, drawn on the host
+    from parameter ``i``'s own generator and then moved, so the CPU and the
+    card draw the same weights."""
+    out = {}
+    for i, (name, shape, fan_in) in enumerate(shapes):
+        g = torch.Generator().manual_seed(sub_seed(seed, SALT_HEAD, i))
+        bound = 1.0 / math.sqrt(fan_in)
+        w = torch.empty(tuple(shape), dtype=torch.float32).uniform_(-bound, bound,
+                                                                      generator=g)
+        out[name] = w.to(device)
+    return out
+
+
 class ChunkSource:
     """The run's chunks in order: chunk ``i`` is chunk ``i % per_block`` of
     block ``i // per_block``; blocks are made on first use and kept (the
-    reference replays them)."""
+    reference replays them). With ``dense`` (``num_dense``, law) each block
+    brings its queries' dense features too."""
 
-    def __init__(self, gen: TrafficGen):
+    def __init__(self, gen: TrafficGen, dense: Optional[Tuple[int, str]] = None):
         self.gen = gen
         self.per_block = gen.block_queries // gen.chunk
         self.blocks: List[Block] = []
+        self.dense_spec = dense
+        self.dense_blocks: List[np.ndarray] = []
 
     def ready(self, i: int) -> bool:
         return i // self.per_block < len(self.blocks)
 
     def make_next_block(self) -> None:
-        self.blocks.append(self.gen.block(len(self.blocks)))
+        b = len(self.blocks)
+        self.blocks.append(self.gen.block(b))
+        if self.dense_spec is not None:
+            self.dense_blocks.append(dense_block(self.gen.seed, b, self.gen.block_queries,
+                                                 *self.dense_spec))
+
+    def dense(self, i: int) -> np.ndarray:
+        """Chunk ``i``'s dense features, ``[chunk, num_dense]`` f32 on the
+        host, as a request brings them."""
+        while not self.ready(i):
+            self.make_next_block()
+        b, c = divmod(i, self.per_block)
+        q0 = c * self.gen.chunk
+        return self.dense_blocks[b][q0:q0 + self.gen.chunk]
 
     def raw(self, i: int):
         while not self.ready(i):

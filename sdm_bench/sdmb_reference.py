@@ -5,7 +5,9 @@ nothing the program made. From the run's seed it makes the same f32 tables
 again (``sdmb_inputs``), quantizes them itself, replays the row cache's
 decisions over every chunk the program served (set hash, LRU stamps, the
 ranked fill), dedupes the misses, prices them with the analytic SM model,
-and pools the sampled chunks in float64.
+and pools the sampled chunks in float64. Where the configuration brings a
+scoring head, the head's own reference (``sdm_bench/heads/<name>.py``,
+plain PyTorch) scores those pooled bags in float64.
 
 Frozen copies of the rules the configuration states (copied from the
 program, so later changes to it do not move the yardstick):
@@ -213,7 +215,8 @@ def pool(torch, rows, bag, n_bags: int):
 def pooled_gap(torch, got, ref, l1) -> float:
     """The largest ``|got - ref|`` over ``l1``, the bag's sum of its terms'
     magnitudes (the scale of the float32 rounding a dequantized, pooled
-    value can carry), over every element."""
+    value can carry), over every element. ``score_gap`` is the same quotient
+    over a head's logits, ``l1`` the head run on magnitudes."""
     got = torch.as_tensor(got, device=ref.device).to(torch.float64)
     if got.shape != ref.shape:
         return float("inf")
@@ -234,3 +237,73 @@ def control_pool(torch, store, kind: str, grow, bag, n_bags: int):
     else:
         raise ValueError(f"unknown control {kind!r}")
     return pool(torch, rows, bag, n_bags)
+
+
+# -- a scoring head --------------------------------------------------------------------
+
+
+def round_tf32(torch, x):
+    """``x`` rounded to TF32 (float32 with a 10-bit mantissa, to nearest,
+    ties to even), in ``x``'s dtype: the same bits on the CPU and the card."""
+    b = x.to(torch.float32).contiguous().view(torch.int32)
+    b = torch.bitwise_and(b + 0xFFF + torch.bitwise_and(b >> 13, 1), ~0x1FFF)
+    return b.view(torch.float32).to(x.dtype)
+
+
+class TF32Ops:
+    """``torch`` as a head sees it, with both operands of every
+    ``torch.matmul`` rounded to TF32 (the product taken in the operands'
+    dtype): the ``tf32_head`` control. A head multiplies through
+    ``torch.matmul`` of the namespace it is given, so ``calls`` counts its
+    products."""
+
+    def __init__(self, torch):
+        self._torch = torch
+        self.calls = 0
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def matmul(self, a, b):
+        self.calls += 1
+        return self._torch.matmul(round_tf32(self._torch, a), round_tf32(self._torch, b))
+
+
+class Head:
+    """A configuration's scoring head: its ``scoring`` block and its plain
+    reference, ``sdm_bench/heads/<reference>.py``, which gives
+    ``param_shapes(spec)`` (name, shape, fan-in of each parameter, in the
+    order they are drawn) and ``logits(torch, pooled [B, T, D], dense [B,
+    num_dense], weights, spec)`` -> ``[B]``. ``spec`` is the block's, with
+    ``num_dense`` added."""
+
+    def __init__(self, module, block: dict):
+        self.module = module
+        self.num_dense = int(block["num_dense"])
+        self.dense_law = block["dense_law"]
+        spec = dict(block["spec"])
+        if spec.setdefault("num_dense", self.num_dense) != self.num_dense:
+            raise ValueError(f"the head's spec has num_dense {spec['num_dense']}, "
+                             f"the block {self.num_dense}")
+        self.spec = spec
+        self.limit = float(block["limits"]["score_gap"])
+
+    def param_shapes(self):
+        return self.module.param_shapes(self.spec)
+
+    def weights64(self, torch, seed: int, device):
+        """The weights the program was given, drawn again, in float64."""
+        return {k: w.to(torch.float64) for k, w in
+                inputs.head_weights(torch, self.param_shapes(), seed, device).items()}
+
+    def logits(self, torch, pooled, dense, weights):
+        """The head in the dtype of its inputs, matmuls as ``torch`` does them."""
+        return self.module.logits(torch, pooled, dense, weights, self.spec)
+
+    def tf32_logits(self, torch, pooled, dense, weights):
+        ops = TF32Ops(torch)
+        out = self.module.logits(ops, pooled, dense, weights, self.spec)
+        if not ops.calls:
+            raise ValueError("the head made no product through torch.matmul: the "
+                             "tf32_head control cannot round its operands")
+        return out

@@ -217,13 +217,22 @@ def mean_ms(spans: Sequence[Span], name: str) -> Optional[float]:
 def metrics(recorded: Sequence[tuple], calls: Sequence[Call],
             counters: Dict[str, int], spans_dropped: int,
             events: Optional[Sequence[Event]] = None) -> Dict[str, float]:
+    """The per-layer metrics of a traced window, by name (:func:`read_window`)."""
+    return read_window(recorded, calls, counters, spans_dropped, events)[0]
+
+
+def read_window(recorded: Sequence[tuple], calls: Sequence[Call],
+                counters: Dict[str, int], spans_dropped: int,
+                events: Optional[Sequence[Event]] = None
+                ) -> Tuple[Dict[str, float], Dict[str, float]]:
     """The per-layer metrics of a traced window, by name: mean span times a
     call (ms), the share of the padded block's slots that hold a key (%),
     and with device ``events``, the card's idle shares of the calls'
     seconds (%), from the records :func:`aligned` moves (as read where it
-    cannot). Empty where a span was dropped."""
+    cannot); and the idle seconds by innermost span (:func:`idle_by_span`;
+    empty without ``events``). Both empty where a span was dropped."""
     if spans_dropped > 0 or not calls:
-        return {}
+        return {}, {}
     spans = spans_ns(recorded)
     out = {}
     for metric, name in (("densify_span_ms", "engine.densify"),
@@ -235,13 +244,14 @@ def metrics(recorded: Sequence[tuple], calls: Sequence[Call],
     if counters.get("engine.slots"):
         out["slot_use_share"] = (100.0 * counters["engine.valid_keys"]
                                  / counters["engine.slots"])
+    idle: Dict[str, float] = {}
     if events:
         moved = aligned(events, spans)
         serving = sum(e - s for s, e in calls) * 1e-9
+        idle = idle_by_span(events if moved is None else moved, spans, calls)
         by_group = collections.defaultdict(float)
-        for name, sec in idle_by_span(events if moved is None else moved, spans,
-                                      calls).items():
+        for name, sec in idle.items():
             by_group[group_of(name)] += sec
         for g in ("outside_engine", "engine_host", "step"):
             out[f"idle_{g}_share"] = 100.0 * by_group[g] / serving
-    return out
+    return out, idle

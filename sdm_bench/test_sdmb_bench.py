@@ -101,6 +101,8 @@ def test_an_added_cell_is_found_by_name(tmp_path):
     bench["per_layer"].append({"name": "keys_a_query", "unit": "keys", "better": "higher",
                                "source": "program_counter", "layer": "row cache",
                                "moves": "qps", "workloads": ["tiny2-mixed"]})
+    for m in bench["end_to_end"]:          # the metrics that name their cells
+        m.get("workloads", []).append("tiny2-mixed")
     bench["end_to_end"].append({"name": "queries_served", "unit": "queries",
                                 "better": "higher", "bound": 0.25, "source": "host_clock",
                                 "workloads": ["tiny2-mixed"]})
@@ -113,8 +115,9 @@ def test_an_added_cell_is_found_by_name(tmp_path):
     assert traced["correct"], traced["checks"]
     assert traced["metrics"]["keys_a_query"]["value"] > 0
     # device metrics are never written from a CPU run
-    assert not {"device_idle_share", "device_busy_ms", "step_mfu", "gather_pool_roofline",
-                "cache_probe_roofline"} & set(traced["metrics"])
+    device = {"device_idle_share", "device_busy_ms", "step_mfu", "gather_pool_roofline",
+              "cache_probe_roofline"}
+    assert not (device | {f"{n}.sm_reads" for n in device}) & set(traced["metrics"])
     assert "keys_a_query" not in _run(root, "tiny-zipf", trace=True)["metrics"]
 
 
@@ -129,6 +132,23 @@ def test_benchmark_json_names_files_that_exist():
         assert (tt.BENCH_DIR / "end_to_end" / f"{m['name']}.py").is_file()
     for m in bench["per_layer"]:
         assert (tt.BENCH_DIR / "metrics" / f"{m['name']}.py").is_file()
+
+
+def test_per_layer_metrics_move_what_their_cells_report():
+    """Each per-layer metric lists its cells, and each of them reports the
+    end-to-end metric it moves; ``m1-zipf`` reports its rate and tail per
+    layer only."""
+    bench = json.loads((tt.REPO / "BENCHMARK.json").read_text())
+    cells = [w["name"] for w in bench["workloads"]]
+    reported = {w: {m["name"] for m in harness.load_cell(tt.REPO, w).end_to_end}
+                for w in cells}
+    for m in bench["per_layer"]:
+        assert m["workloads"] and set(m["workloads"]) <= set(cells), m["name"]
+        for w in m["workloads"]:
+            assert m["moves"] in reported[w], (m["name"], w)
+    assert reported["m1-zipf"] == {"sm_reads_per_query", "setup_s"}
+    zipf = {m["name"] for m in harness.load_cell(tt.REPO, "m1-zipf").per_layer}
+    assert {"traced_qps", "traced_batch_p95_ms", "densify_span_ms.sm_reads"} <= zipf
 
 
 # -- the configurations -------------------------------------------------------------------
@@ -274,7 +294,7 @@ def test_traced_counts_match_the_program(tmp_path):
     out = _run(root, "tiny-zipf", trace=True, seconds=0.2)
     assert out["correct"], out["checks"]
     assert out["metrics"]["cache_hit_rate"]["value"] > 0
-    assert out["metrics"]["dense_from_chunk_ms"]["value"] > 0
+    assert out["metrics"]["densify_span_ms"]["value"] > 0
 
 
 # -- the reference ----------------------------------------------------------------------

@@ -62,7 +62,7 @@ def test_m2_shaped_traced_run(tmp_path):
     out = harness.run(_root(tmp_path), "tiny-zipf", 161803398, 0.2, True, device="cpu")
     assert out["correct"], out["checks"]
     assert 0 < out["metrics"]["cache_hit_rate"]["value"] < 100
-    assert out["metrics"]["dense_from_chunk_ms"]["value"] > 0
+    assert out["metrics"]["densify_span_ms"]["value"] > 0
 
 
 def test_m2_inventory_is_the_samplers():

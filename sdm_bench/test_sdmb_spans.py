@@ -226,6 +226,8 @@ def test_span_and_counter_metrics_of_a_tiny_cpu_window():
 
 @pytest.mark.parametrize("trace", [False, True])
 def test_the_harness_serves_with_no_telemetry(tmp_path, monkeypatch, trace):
+    """An untraced run serves every call with no telemetry; a traced run
+    attaches the wall spans for its window only: warm-up serves with none."""
     seen = []
     serve = DeviceServingEngine.serve_columnar
 
@@ -236,7 +238,14 @@ def test_the_harness_serves_with_no_telemetry(tmp_path, monkeypatch, trace):
     monkeypatch.setattr(DeviceServingEngine, "serve_columnar", spy)
     root = tt.make_root(tmp_path, cells=("tiny-zipf",))
     out = harness.run(root, "tiny-zipf", 7, 0.2, trace, device="cpu")
-    assert out["correct"] and seen and all(t is None for t in seen)
+    assert out["correct"] and seen
+    warm = next((k for k, t in enumerate(seen) if t is not None), len(seen))
+    assert all(t is None for t in seen[:warm])
+    if trace:
+        assert 0 < warm < len(seen) and seen[warm].wall is not None
+        assert all(t is seen[warm] for t in seen[warm:])
+    else:
+        assert warm == len(seen)
 
 
 # -- the card ------------------------------------------------------------------------------
